@@ -1,0 +1,307 @@
+"""Party roles and the communication channel (simulation with accounting).
+
+The protocol runs in-process, but every cross-party transfer goes through
+:class:`Channel.send`, which records (src, dst, tag, wire_bytes, n_msgs).
+Wire bytes are counted at *protocol* fidelity, not storage fidelity: a
+ciphertext costs ceil(modulus_bits/8) bytes (2x for Paillier, which lives in
+Z_{n^2}), regardless of our int32-per-limb in-memory layout.  The ledger is
+what the cost-model benchmark (paper eqs 10/16) reads.
+
+HE-operation counters (encrypt / decrypt / hom-add / hom-scalar-mul) live in
+:class:`Stats` and are incremented at call sites with exact analytic counts,
+mirroring the paper's cost accounting (eqs 8-9 / 14-15).
+"""
+
+from __future__ import annotations
+
+import collections
+import dataclasses
+import math
+import threading
+
+from ..obs.metrics import MetricsRegistry
+from ..obs.trace import NULL_TRACER
+
+
+class PartyUnavailable(RuntimeError):
+    """A remote party failed to answer within its serving deadline.
+
+    Raised per *batch* by the serving path (never a hang, never a
+    partial-bits answer): the caller may retry the batch once the party
+    reconnects.  Defined here — not in ``runtime/`` — because the serving
+    engine must be able to raise/catch it without importing the transport
+    layer (``serving`` has no runtime dependency)."""
+
+    def __init__(self, party: str, reason: str = ""):
+        self.party = party
+        super().__init__(f"party {party} unavailable"
+                         + (f": {reason}" if reason else ""))
+
+
+def ct_wire_bytes(cipher) -> int:
+    """Bytes one ciphertext occupies on the wire."""
+    if cipher.backend == "limb":
+        return cipher.Ln            # radix-2**8: one byte per limb
+    return 2 * ((cipher.n.bit_length() + 7) // 8)   # Paillier: Z_{n^2}
+
+
+@dataclasses.dataclass
+class Stats:
+    n_encrypt: int = 0
+    n_decrypt: int = 0
+    n_hom_add: int = 0          # ciphertext-ciphertext additions
+    n_hom_scalar: int = 0       # scalar/shift multiplications (compress)
+    n_split_infos: int = 0      # split-info stats produced (pre-compress)
+    n_packages: int = 0         # ciphertexts actually decrypted/transferred
+    n_hist_launches: int = 0    # histogram accumulation kernel launches
+    n_split_roundtrips: int = 0  # guest<->host split_infos exchanges
+    n_collectives: int = 0      # intra-party device collectives (psum)
+    coll_bytes: int = 0         # analytic bytes moved by those collectives
+    n_cts_placements: int = 0   # host->device ciphertext re-placements the
+                                # frontier performed (0 = born sharded, §8)
+    peak_hist_cache: int = 0    # max cached parent hists after any eviction
+    peak_frontier: int = 0      # max frontier width (layer node count)
+    peak_cts_bytes: int = 0     # max device-resident ciphertext-batch bytes:
+                                # O(rows) monolithic, O(block) streamed
+    peak_block_bytes: int = 0   # max device bytes uploaded per histogram
+                                # launch (bins + slots + cts operands)
+    n_predict_batches: int = 0  # serving-engine batches served
+    n_predict_roundtrips: int = 0   # host predict_bits exchanges: exactly
+                                    # ONE per (host, batch) in the
+                                    # round-batched serving protocol
+    # Timing instruments (formerly float/list dataclass fields) live in a
+    # MetricsRegistry created per instance in __post_init__ and are
+    # reattached as generated properties below, so every existing call
+    # site (`stats.encrypt_seconds += dt`, `stats.tree_seconds.append`,
+    # `del stats.tree_seconds[t:]`) keeps its exact behavior.  They are
+    # NOT dataclass fields: the registry holds locks, which neither
+    # `dataclasses.asdict` (deepcopy) nor pickling would survive.
+    #
+    # _TIMERS (counter-backed floats):
+    #   encrypt_seconds     guest encrypt wall time (blocked once/tree)
+    #   prefetch_seconds    encrypt+ship wall time hidden behind other
+    #                       useful work by the pipelined prefetch pump
+    #   guest_hist_seconds  guest plaintext candidate time overlapped
+    #                       with in-flight host cipher work
+    #   host_dispatch_seconds  async launch of the host pipeline
+    #   host_wait_seconds   blocking decrypt+decode tail
+    #   predict_seconds     serving engine wall time (bins->score)
+    # _SERIES (list-backed):
+    #   tree_seconds        per-tree wall time
+    #   layer_overlap       per layer: guest-window / candidate-phase
+    #                       seconds (UPPER bound on true concurrency: the
+    #                       host pipeline may drain before the window ends)
+    #   wire_overlap        per tree: fraction of the encrypt+ship window
+    #                       that ran concurrently with other work
+    _TIMERS = ("encrypt_seconds", "prefetch_seconds", "guest_hist_seconds",
+               "host_dispatch_seconds", "host_wait_seconds",
+               "predict_seconds")
+    _SERIES = ("tree_seconds", "layer_overlap", "wire_overlap")
+
+    def __post_init__(self):
+        # plain instance attributes, invisible to dataclasses.asdict
+        self.metrics = MetricsRegistry()
+        self.unmerged: dict = {}
+        for name in self._TIMERS:
+            self.metrics.counter(name)
+        for name in self._SERIES:
+            self.metrics.series(name)
+
+    def as_dict(self):
+        d = dataclasses.asdict(self)
+        for name in self._TIMERS:
+            d[name] = self.metrics.counter(name).value
+        for name in self._SERIES:
+            d[name] = list(self.metrics.series(name).data)
+        return d
+
+    # gauge fields are maxima, not counters: merging across parties must
+    # take the max or a 2-host run would report 3x the real peak
+    _GAUGES = ("peak_hist_cache", "peak_frontier", "peak_cts_bytes",
+               "peak_block_bytes")
+
+    def merge_counts(self, other: dict) -> None:
+        """Fold another party's ``as_dict()`` into this one: numeric
+        counters add, gauges max, per-tree/per-layer lists concatenate.
+        Under the multi-host runtime each process tallies its own side of
+        the work; merging reconstructs the single shared-Stats view of an
+        in-process run (``MultiHostRun.merged_stats``).
+
+        Version-skew safe: a key this build does not know (a newer peer's
+        counter) lands in :attr:`unmerged` — numerics add, lists concat —
+        instead of being silently dropped, so a rolling upgrade never
+        loses accounting."""
+        for key, val in other.items():
+            cur = getattr(self, key, None)
+            if isinstance(cur, list):
+                cur.extend(val)
+            elif isinstance(cur, (int, float)) and not isinstance(cur, bool):
+                merged = max(cur, val) if key in self._GAUGES else cur + val
+                setattr(self, key, type(cur)(merged))
+            else:
+                prev = self.unmerged.get(key)
+                if isinstance(prev, list) and isinstance(val, list):
+                    self.unmerged[key] = prev + list(val)
+                elif (isinstance(prev, (int, float))
+                        and isinstance(val, (int, float))
+                        and not isinstance(prev, bool)
+                        and not isinstance(val, bool)):
+                    self.unmerged[key] = prev + val
+                else:
+                    self.unmerged[key] = (list(val) if isinstance(val, list)
+                                          else val)
+
+    @property
+    def overlap_fraction(self) -> float:
+        """Mean per-layer fraction of candidate wall time spent in the
+        guest's plaintext-histogram window while the host cipher pipeline
+        was dispatched (upper bound on true concurrency, see above).
+
+        Plain-cipher runs record no cipher work (``encrypt_seconds == 0``)
+        and may log degenerate per-layer entries; non-finite entries are
+        dropped and an empty list clamps to 0.0 so the property never
+        returns NaN or raises ZeroDivisionError."""
+        vals = [v for v in self.layer_overlap if math.isfinite(v)]
+        if not vals:
+            return 0.0
+        return float(sum(vals)) / len(vals)
+
+    @property
+    def wire_overlap_frac(self) -> float:
+        """Fraction of total encrypt+ship wall time hidden behind other
+        work by the pipelined prefetch pump (the ``overlap_fraction``
+        analogue for the wire).  Clamped to [0, 1]; 0.0 when no encrypt
+        time was recorded at all (plain runs), never NaN."""
+        denom = float(self.encrypt_seconds)
+        if not math.isfinite(denom) or denom <= 0.0:
+            return 0.0
+        frac = float(self.prefetch_seconds) / denom
+        return max(0.0, min(1.0, frac))
+
+
+def _timer_property(name: str) -> property:
+    def fget(self):
+        return self.metrics.counter(name).value
+
+    def fset(self, v):           # += and merge_counts setattr both land here
+        self.metrics.counter(name).set(float(v))
+
+    return property(fget, fset)
+
+
+def _series_property(name: str) -> property:
+    def fget(self):              # the LIVE list: append/extend/del work
+        return self.metrics.series(name).data
+
+    def fset(self, v):
+        data = self.metrics.series(name).data
+        data[:] = list(v)
+
+    return property(fget, fset)
+
+
+for _name in Stats._TIMERS:
+    setattr(Stats, _name, _timer_property(_name))
+for _name in Stats._SERIES:
+    setattr(Stats, _name, _series_property(_name))
+del _name
+
+
+class Channel:
+    """Cross-party wire ledger plus a *separate* intra-party collective
+    ledger: device collectives never cross a party boundary, so they must
+    not inflate the protocol's wire-byte accounting.
+
+    The ledger semantics are those of the JAX package byte for byte, so
+    ``summary()`` of the two packages compares equal for the same
+    traffic.  Every ``send`` tag is a wire tag of ``analysis/schema.py``.
+    ``send`` payloads are a declared taint sink: anything secret
+    (plaintext g/h, labels, private-key material) must pass a
+    ``@declassifies`` sanitizer before reaching one."""
+
+    def __init__(self):
+        self.ledger = []
+        self.totals = collections.Counter()
+        self.msgs = collections.Counter()
+        self.coll_ledger = []
+        self.coll_totals = collections.Counter()
+        self.coll_msgs = collections.Counter()
+        # the pipelined encrypt pump (core/tree.py) records its enc_gh
+        # send from a worker thread while the training thread records the
+        # layer protocol: Counter += is read-modify-write, so ledger
+        # mutation takes this lock (uncontended in sequential runs)
+        self._lock = threading.Lock()
+        # per-channel tracer: every party owns its own Channel, so wire
+        # events attribute correctly even in single-process loopback mode
+        self.tracer = NULL_TRACER
+
+    def send(self, src: str, dst: str, tag: str, payload, nbytes: int):
+        with self._lock:
+            self.ledger.append((src, dst, tag, int(nbytes)))
+            self.totals[tag] += int(nbytes)
+            self.msgs[tag] += 1
+        if self.tracer.enabled:
+            # the audited category: one instant per ledger append, with
+            # the exact nbytes the ledger recorded — per party, wire-event
+            # byte sums MUST equal the converged per-tag ledger totals
+            self.tracer.instant(tag, cat="wire", src=src, dst=dst,
+                                tag=tag, nbytes=int(nbytes))
+        return payload
+
+    def collective(self, party: str, kind: str, nbytes: int) -> None:
+        """Record an intra-party device collective (analytic byte count)."""
+        with self._lock:
+            self.coll_ledger.append((party, kind, int(nbytes)))
+            self.coll_totals[kind] += int(nbytes)
+            self.coll_msgs[kind] += 1
+
+    def snapshot(self) -> dict:
+        """Accounting state at a resume boundary (tree/round edge).
+
+        Together with :meth:`restore` this is what lets a faulted run
+        replay a boosting round and still end with a ledger identical to
+        the fault-free oracle: the aborted attempt's entries are rolled
+        back, the replay records them fresh (duplicates counted once)."""
+        return {"n_ledger": len(self.ledger),
+                "totals": self.totals.copy(),
+                "msgs": self.msgs.copy(),
+                "n_coll": len(self.coll_ledger),
+                "coll_totals": self.coll_totals.copy(),
+                "coll_msgs": self.coll_msgs.copy()}
+
+    def restore(self, snap: dict) -> None:
+        """Roll the accounting back to a :meth:`snapshot`."""
+        del self.ledger[snap["n_ledger"]:]
+        self.totals = snap["totals"].copy()
+        self.msgs = snap["msgs"].copy()
+        del self.coll_ledger[snap["n_coll"]:]
+        self.coll_totals = snap["coll_totals"].copy()
+        self.coll_msgs = snap["coll_msgs"].copy()
+
+    def reset_accounting(self) -> None:
+        """Zero every ledger/counter.  A long-lived channel (the
+        multi-host transport) spans model lifetimes; per-fit accounting
+        needs a clean slate or refits double-count."""
+        self.ledger.clear()
+        self.totals.clear()
+        self.msgs.clear()
+        self.coll_ledger.clear()
+        self.coll_totals.clear()
+        self.coll_msgs.clear()
+
+    @property
+    def total_bytes(self) -> int:
+        return sum(self.totals.values())
+
+    @property
+    def total_collective_bytes(self) -> int:
+        return sum(self.coll_totals.values())
+
+    def summary(self) -> dict:
+        return {tag: {"bytes": self.totals[tag], "msgs": self.msgs[tag]}
+                for tag in sorted(self.totals)}
+
+    def collective_summary(self) -> dict:
+        return {kind: {"bytes": self.coll_totals[kind],
+                       "msgs": self.coll_msgs[kind]}
+                for kind in sorted(self.coll_totals)}

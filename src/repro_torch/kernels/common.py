@@ -1,0 +1,11 @@
+"""Shared helpers for the port's kernel wrappers."""
+
+from __future__ import annotations
+
+
+def cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def round_up(a: int, b: int) -> int:
+    return cdiv(a, b) * b
