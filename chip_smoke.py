@@ -9,41 +9,70 @@ Phases, each fatal on failure (nothing is caught and carried on):
    ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader``.
 2. Build: compiles every ``src/repro_torch/csrc/*.cu`` with ``nvcc`` for
    ``sm_90a`` and prints the seconds and what ptxas reported.
-3. Kernel phase: the bucketize kernel against its plain PyTorch version on
-   the card, ``torch.equal``, at the serving path's shapes (the fixture's
-   own thresholds, 31 per feature) and on an edge batch (NaN, +-inf, -0.0,
+3. Bucketize kernel: against its plain PyTorch version on the card,
+   ``torch.equal``, at the serving path's shapes (the fixture's own
+   thresholds, 31 per feature) and on an edge batch (NaN, +-inf, -0.0,
    subnormals, values equal to a threshold, all-+inf threshold rows); a
    threshold table over the kernel's 48 KB of shared memory must raise.
    Prints the kernel's, the plain version's and ``torch.searchsorted``'s
    (a yardstick the port never calls) CUDA-event times per call (many
    back-to-back calls over their count, median of 5) beside the kernel's
    bound.
-4. Serving phase (the port's main path): loads the committed JAX export
+4. Layer histogram kernel: against its plain version, ``torch.equal``, at
+   the training path's shapes (65,536 rows, 14 host features, 32 bins,
+   131 limbs, 1/2/4/8 nodes) and on edge inputs (masked bins and slots,
+   row counts off the tiles, 1 and non-power-of-two node counts, W = 1,
+   a node count that tiles the node axis, the largest sum); a bin count
+   past the kernel's shared memory must raise.  Times beside its bound,
+   its plain version and one ``index_add_`` over the composite index (a
+   yardstick the port never calls).
+5. Serving phase (the serving path): loads the committed JAX export
    ``src/repro_torch/fixtures/serving_t25_d6`` with ``load_ensemble`` on
    the card and serves it with ``FederatedPredictor``: the 65536-row
    reference batch, whose scores must equal the JAX package's committed
    scores bit for bit, four more 65536-row batches and one 1,048,576-row
    batch.  Kernel launch counts are zeroed just before and read just
    after; every kernel of the path must have launched.
-5. Branches: the two small committed JAX exports under
+6. Branches: the two small committed JAX exports under
    ``fixtures/serving_branches`` (multiclass with two hosts, and
    multi-output leaves) served on the card, scores bit-identical to the
    JAX package's, so every branch of the score accumulation is held.
-6. Throughput, latency and profile (after the counted run): windows of
-   back-to-back batches (100 of 65536 rows, 8 of 1,048,576), rows/s as
-   all rows over the window's time, p50/p90 per batch; then a window of
-   batches of each size untraced and again under ``torch.profiler``, for
-   device time by kernel and the device's idle share of the untraced
-   wall time.
-7. Prints the kernels' JSON line, the card line, and last the device line.
+7. Training phase (the training path): ``VerticalBoosting`` with the
+   plain cipher trains the scale shape of ``benchmarks/bench_tree_build.py``
+   (65,536 rows, 2 guest and 14 host features, 3 trees of depth 4, 32
+   bins) on the card and scores the training rows; launch counts are
+   zeroed just before and read just after, and both kernels must have
+   launched.  Tree signatures, scores, ``channel.summary()`` after the
+   fit and after scoring, and the integer ``Stats`` counters must equal
+   the JAX package's committed reference
+   (``fixtures/train_scale_plain``); the trained model is also served
+   through a fresh ``FederatedPredictor`` against the same scores.  Then
+   seconds per tree (the first apart, as warm-up), the device's idle
+   share (device busy time under ``torch.profiler`` over the untraced wall
+   time of the same boosting rounds, run just before), ``carry_fix``
+   iterations, and device time by stage (bins, K1, the layer reduce, the
+   cumsum, compress, decrypt and decode).
+8. Two hosts: the small two-host case of ``tests/test_gbdt.py`` trained
+   on the card, equal to its committed reference
+   (``fixtures/train_two_hosts_plain``).
+9. Serving throughput, latency and profile (after the counted runs):
+   windows of back-to-back batches (100 of 65536 rows, 8 of 1,048,576),
+   rows/s as all rows over the window's time, p50/p90 per batch; then a
+   window of batches of each size untraced and again under
+   ``torch.profiler``, for device time by kernel and the device's idle
+   share of the untraced wall time.
+10. Prints the kernels' JSON line, the card line, and last the device
+    line.
 
 With ``--json PATH`` every number, the build log and the per-kernel
-profile are also written to PATH.
+profiles are also written to PATH.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
+import functools
 import json
 import os
 import subprocess
@@ -56,9 +85,11 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 FIXTURES = os.path.join(ROOT, "src", "repro_torch", "fixtures")
 FIXTURE = os.path.join(FIXTURES, "serving_t25_d6")
 BRANCHES = ("serving_branches/multiclass_2hosts", "serving_branches/mo")
+TRAIN_SCALE = "train_scale_plain"
+TRAIN_TWO_HOSTS = "train_two_hosts_plain"
 
 # H100 SXM published peaks: HBM3 bandwidth, and fp32 outside the tensor
-# cores (the rate a compare runs at)
+# cores (the rate a compare or a 32-bit add runs at)
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 
@@ -272,6 +303,425 @@ def branch_phase(torch, dev) -> list:
     return rows
 
 
+def layer_hist_bound(bins, slot, W: int, n_nodes: int,
+                     n_bins: int) -> tuple:
+    """Least time for the layer histogram on these inputs: every slot
+    read, the bins and limbs of the rows that lie in a node read once, the
+    histogram written once; or one 32-bit add per (counted row, feature,
+    limb) -- whichever is longer."""
+    n_i, n_f = bins.shape
+    in_node = (slot >= 0) & (slot < n_nodes)
+    rows = int(in_node.sum())
+    pairs = int(((bins >= 0) & (bins < n_bins) & in_node[:, None]).sum())
+    nbytes = 4 * (n_i + rows * (n_f + W) + n_nodes * n_f * n_bins * W)
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = pairs * W / FP32_OPS_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def k1_inputs(torch, dev, n_i, n_f, n_bins, n_nodes, W, seed,
+              bin_mask=0.0, slot_mask=0.0):
+    """Random bins, slots and canonical limbs on the card, with the given
+    shares of the bins and of the slots set to -1."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    kw = dict(generator=g, device=dev, dtype=torch.int32)
+    bins = torch.randint(0, n_bins, (n_i, n_f), **kw)
+    slot = torch.randint(0, n_nodes, (n_i,), **kw)
+    cts = torch.randint(0, 256, (n_i, W), **kw)
+    bins[torch.rand((n_i, n_f), generator=g, device=dev) < bin_mask] = -1
+    slot[torch.rand((n_i,), generator=g, device=dev) < slot_mask] = -1
+    return bins, slot, cts
+
+
+# layer histogram edge inputs: name, n_i, n_f, n_bins, n_nodes, W, mask
+K1_EDGES = [
+    ("masked bins and slots", 65536, 14, 32, 4, 131, 0.3),
+    ("rows off the tile", 65537, 14, 32, 3, 131, 0.1),
+    ("few rows, 5 nodes", 1000, 5, 32, 5, 131, 0.1),
+    ("one row", 1, 1, 2, 1, 1, 0.0),
+    ("W = 1", 4099, 7, 32, 4, 1, 0.2),
+    ("node-tiled: 64 nodes x 256 bins", 4096, 3, 256, 64, 131, 0.1),
+]
+
+
+def layer_hist_phase(torch, dev) -> list:
+    """K1 against its plain version at the training path's shapes and on
+    edge inputs, ``torch.equal``; timed at the path's shapes."""
+    from repro_torch.kernels.histogram import layer_hist_ref
+    from repro_torch.kernels.histogram.histogram import layer_hist_cuda
+    n_i, n_f, n_bins, W = 65536, 14, 32, 131
+    rows = []
+    for n_nodes in (1, 2, 4, 8):
+        # layer 0 has every row in its one node; deeper layers send only
+        # the rows of their direct nodes, about half, to the kernel
+        mask = 0.0 if n_nodes == 1 else 0.5
+        bins, slot, cts = k1_inputs(torch, dev, n_i, n_f, n_bins, n_nodes,
+                                    W, seed=n_nodes, slot_mask=mask)
+        out = layer_hist_cuda(bins, slot, cts, n_nodes, n_bins)
+        ref = layer_hist_ref(bins, slot, cts, n_nodes, n_bins)
+        torch.cuda.synchronize()
+        if not torch.equal(out, ref):
+            fail(f"layer_hist kernel != plain at {n_nodes} nodes: "
+                 f"{int((out != ref).sum())} sums differ")
+        err = int((out.long() - ref.long()).abs().max())
+        # the yardstick: one index_add_ over the composite index, its
+        # source expanded to one limb row per (row, feature) beforehand
+        ok = (slot[:, None] >= 0) & (bins >= 0)
+        idx = ((slot.long()[:, None] * n_f
+                + torch.arange(n_f, device=dev)) * n_bins + bins.long())[ok]
+        src = cts.unsqueeze(1).expand(n_i, n_f, W)[ok].contiguous()
+        lib_out = torch.zeros((n_nodes * n_f * n_bins, W), dtype=torch.int32,
+                              device=dev)
+        lib_out.index_add_(0, idx, src)
+        if not torch.equal(lib_out.view_as(ref), ref):
+            fail(f"the index_add_ yardstick disagrees at {n_nodes} nodes")
+        ms = time_ms(torch, lambda: layer_hist_cuda(bins, slot, cts,
+                                                    n_nodes, n_bins))
+        plain_ms = time_ms(torch, lambda: layer_hist_ref(bins, slot, cts,
+                                                         n_nodes, n_bins),
+                           reps=5)
+        lib_ms = time_ms(torch, lambda: lib_out.index_add_(0, idx, src))
+        bound_ms, bound_by = layer_hist_bound(bins, slot, W, n_nodes, n_bins)
+        del idx, src, lib_out
+        rows.append(dict(shape=[n_i, n_f, n_bins, W], n_nodes=n_nodes,
+                         masked_slots=mask, max_abs_err=err, ms=ms,
+                         plain_ms=plain_ms, library_ms=lib_ms,
+                         bound_ms=bound_ms, bound_by=bound_by))
+        print(f"kernel layer_hist {n_i}x{n_f}x{n_bins}x{W} {n_nodes} "
+              f"node(s): equal, ms={ms:.5f} plain_ms={plain_ms:.5f} "
+              f"library_ms={lib_ms:.5f} bound_ms={bound_ms:.5f} "
+              f"({bound_by})", flush=True)
+    for name, n_i, n_f, n_bins, n_nodes, W, mask in K1_EDGES:
+        bins, slot, cts = k1_inputs(torch, dev, n_i, n_f, n_bins, n_nodes,
+                                    W, seed=n_i, bin_mask=mask,
+                                    slot_mask=mask)
+        out = layer_hist_cuda(bins, slot, cts, n_nodes, n_bins)
+        ref = layer_hist_ref(bins, slot, cts, n_nodes, n_bins)
+        torch.cuda.synchronize()
+        if not torch.equal(out, ref):
+            fail(f"layer_hist kernel != plain on edge input '{name}'")
+        print(f"kernel layer_hist edge '{name}' ({n_i}x{n_f}x{n_bins}x{W}, "
+              f"{n_nodes} nodes): equal", flush=True)
+    # the largest sum: 2**20 rows of limbs 255 in one cell
+    n_i = 1 << 20
+    bins = torch.zeros((n_i, 2), dtype=torch.int32, device=dev)
+    slot = torch.zeros(n_i, dtype=torch.int32, device=dev)
+    cts = torch.full((n_i, W), 255, dtype=torch.int32, device=dev)
+    out = layer_hist_cuda(bins, slot, cts, 1, n_bins)
+    ref = layer_hist_ref(bins, slot, cts, 1, n_bins)
+    torch.cuda.synchronize()
+    if not torch.equal(out, ref) or int(out[0, 0, 0, 0]) != n_i * 255:
+        fail("layer_hist kernel != plain on the largest sum")
+    print(f"kernel layer_hist edge 'largest sum' ({n_i} rows of 255 in one "
+          f"cell = {n_i * 255}): equal", flush=True)
+    try:
+        layer_hist_cuda(bins[:8, :1].contiguous(), slot[:8],
+                        cts[:8, :1].contiguous(), 1, 20000)
+    except RuntimeError:
+        print("kernel layer_hist refuses 20000 bins (past its shared "
+              "memory)", flush=True)
+    else:
+        fail("layer_hist took a bin count past its shared memory")
+    return rows
+
+
+# --------------------------------------------------------------------------
+# training
+# --------------------------------------------------------------------------
+
+def training_reference(name: str) -> tuple:
+    """A committed JAX training reference: (reference dict, scores)."""
+    path = os.path.join(FIXTURES, name)
+    with open(os.path.join(path, "reference.json")) as f:
+        ref = json.load(f)
+    with np.load(os.path.join(path, "scores.npz")) as z:
+        scores = z["scores"]
+    return ref, scores
+
+
+def training_data(ref) -> tuple:
+    """The reference's rows, rebuilt from its seed: guest columns, the
+    list of each host's columns, labels."""
+    from repro_torch.data import synthetic_tabular
+    d = ref["data"]
+    X, y = synthetic_tabular(d["n"], d["d"], seed=d["seed"])
+    b = d["bounds"]
+    parts = [X[:, lo:hi] for lo, hi in zip(b[:-1], b[1:])]
+    return parts[0], parts[1:], y
+
+
+def signature_json(tree) -> list:
+    """``tree.signature()`` in the reference's JSON form (the float64 leaf
+    weight as the hex of its bytes)."""
+    return [list(row[:8]) + [None if row[8] is None else row[8].hex()]
+            for row in tree.signature()]
+
+
+def int_stats(stats) -> dict:
+    return {k: v for k, v in stats.as_dict().items()
+            if isinstance(v, int) and not isinstance(v, bool)}
+
+
+def compare_training(ref, ref_scores, trees, summary_fit: dict,
+                     stats: dict, scores, summary_predict: dict) -> list:
+    """Every way a trained model differs from its reference; [] when the
+    trees, ledgers, counters and scores are all equal."""
+    bad = []
+    sigs = [signature_json(t) for t in trees]
+    if len(sigs) != len(ref["signatures"]):
+        bad.append(f"{len(sigs)} trees, reference {len(ref['signatures'])}")
+    for t, (a, b) in enumerate(zip(sigs, ref["signatures"])):
+        if a != b:
+            diff = [i for i, (x, y) in enumerate(zip(a, b)) if x != y]
+            bad.append(f"tree {t}: {len(a)} nodes (reference {len(b)}), "
+                       f"first differing node {diff[:1]}")
+    if summary_fit != ref["summary_fit"]:
+        bad.append(f"ledger after fit {summary_fit} != {ref['summary_fit']}")
+    if summary_predict != ref["summary_predict"]:
+        bad.append(f"ledger after scoring {summary_predict} != "
+                   f"{ref['summary_predict']}")
+    diff = {k: (stats.get(k), v) for k, v in ref["stats"].items()
+            if stats.get(k) != v}
+    if diff:
+        bad.append(f"Stats counters differ (got, reference): {diff}")
+    scores = np.asarray(scores)
+    if scores.shape != ref_scores.shape or not np.array_equal(scores,
+                                                              ref_scores):
+        n = int((scores != ref_scores).sum()) if \
+            scores.shape == ref_scores.shape else -1
+        bad.append(f"scores differ from the reference at {n} rows")
+    return bad
+
+
+def train_and_compare(name: str, device) -> tuple:
+    """Train a committed reference's run with the port on ``device`` and
+    score its training rows.  Returns (model, mismatches, fit seconds)."""
+    from repro_torch.core import SBTParams, VerticalBoosting
+    ref, ref_scores = training_reference(name)
+    Xg, Xh, y = training_data(ref)
+    t0 = time.perf_counter()
+    model = VerticalBoosting(SBTParams(device=device, **ref["params"]))
+    model.fit(Xg, y, Xh)
+    fit_s = time.perf_counter() - t0
+    summary_fit = model.channel.summary()
+    stats = int_stats(model.stats)
+    scores = model.predict_score(Xg, Xh)
+    return (model, compare_training(ref, ref_scores, model.trees, summary_fit,
+                                    stats, scores, model.channel.summary()),
+            fit_s)
+
+
+@contextlib.contextmanager
+def stage_ranges(torch):
+    """Wrap the training path's stages in ``torch.profiler`` ranges (only
+    while profiling here; the port itself carries none).  Yields the stage
+    names: a caller that reached a stage by a name bound before the patch
+    would bypass its range, so the caller fails on any stage the profile
+    saw no call of."""
+    import repro_torch.core.boosting as boosting
+    import repro_torch.core.tree as tree
+    from repro_torch.core.histogram import CipherHistogram
+    targets = [(boosting, "bin_features", "sbt:bins"),
+               (tree, "_encrypt_all", "sbt:encrypt"),
+               (CipherHistogram, "layer_histograms",
+                "sbt:layer_histograms (K1 + lazy_sub + reduce)"),
+               (CipherHistogram, "_layer_dispatch", "sbt:K1 layer_hist"),
+               (CipherHistogram, "cumsum", "sbt:cumsum + reduce"),
+               (tree.compress_mod, "compress_batch", "sbt:compress"),
+               (tree, "_host_layer_finish", "sbt:decrypt + decode"),
+               (tree, "_guest_layer_candidates", "sbt:guest histograms")]
+    saved = []
+
+    def wrap(fn, label):
+        @functools.wraps(fn)
+        def inner(*a, **k):
+            with torch.profiler.record_function(label):
+                return fn(*a, **k)
+        return inner
+
+    for obj, attr, label in targets:
+        fn = getattr(obj, attr)
+        saved.append((obj, attr, fn))
+        setattr(obj, attr, wrap(fn, label))
+    try:
+        yield [label[4:] for _, _, label in targets]
+    finally:
+        for obj, attr, fn in saved:
+            setattr(obj, attr, fn)
+
+
+def device_work(prof) -> list:
+    """Every kernel, copy and memset the profile saw on the card, by name,
+    largest first (the ranges' mirrors on the device timeline left out)."""
+    rows = []
+    for e in prof.key_averages():
+        if (not e.key.startswith("sbt:")
+                and "cuda" in str(getattr(e, "device_type", "")).lower()):
+            dev_us = getattr(e, "self_device_time_total", None)
+            if dev_us is None:
+                dev_us = getattr(e, "self_cuda_time_total", 0)
+            rows.append(dict(name=e.key, calls=e.count,
+                             device_ms=dev_us / 1e3))
+    rows.sort(key=lambda r: -r["device_ms"])
+    return rows
+
+
+# the port's own kernels, launched through ctypes with no PyTorch op
+# around them, which the profiler does not attribute to the enclosing
+# range: their time is added to the stages that launch them
+OWN_KERNELS = {"layer_hist_kernel": ("K1 layer_hist",
+                                     "layer_histograms (K1 + lazy_sub + "
+                                     "reduce)"),
+               "bucketize_kernel": ("bins",)}
+
+
+def stage_times(prof, stages=None) -> dict:
+    """Host and device ms of each ``sbt:`` range in the profile: the host
+    time of the range, and the device time of the work launched inside it
+    (the range's host event with its children, not the span of its mirror
+    on the device timeline), plus the port's own kernels."""
+    stages = {} if stages is None else stages
+    for e in prof.events():
+        if e.name.startswith("sbt:") and "CPU" in str(e.device_type):
+            st = stages.setdefault(e.name[4:], dict(calls=0, device_ms=0.0,
+                                                    cpu_ms=0.0))
+            st["calls"] += 1
+            st["device_ms"] += getattr(e, "device_time_total", 0) / 1e3
+            st["cpu_ms"] += e.cpu_time_total / 1e3
+    for r in device_work(prof):
+        for kname, owners in OWN_KERNELS.items():
+            if kname in r["name"]:
+                for owner in owners:
+                    if owner in stages:
+                        stages[owner]["device_ms"] += r["device_ms"]
+    return stages
+
+
+def training_phase(torch, dev) -> dict:
+    """The training path on the card, counted, then timed and profiled."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core import SBTParams, VerticalBoosting
+    from repro_torch.core.he import limbs
+    from repro_torch.kernels.binning import bucketize
+    from repro_torch.kernels.histogram import layer_ciphertext_histogram
+    from repro_torch.serving import FederatedPredictor, PackedEnsemble
+
+    ref, ref_scores = training_reference(TRAIN_SCALE)
+    Xg, Xh, y = training_data(ref)
+
+    # the counted run: fit and score, launch counts zeroed just before
+    bucketize.launches = 0
+    layer_ciphertext_histogram.launches = 0
+    iters0 = limbs.carry_fix.iterations
+    model, bad, fit_s = train_and_compare(TRAIN_SCALE, dev)
+    launches = {"bucketize": bucketize.launches,
+                "layer_hist": layer_ciphertext_histogram.launches}
+    carry_iters = limbs.carry_fix.iterations - iters0
+    if bad:
+        fail("training differs from the JAX reference: " + "; ".join(bad))
+    for name, count in launches.items():
+        if count <= 0:
+            fail(f"the training path never launched the {name} kernel")
+    if launches["layer_hist"] != model.stats.n_hist_launches:
+        fail(f"{launches['layer_hist']} layer_hist launches, Stats counts "
+             f"{model.stats.n_hist_launches}")
+    tree_s = list(model.stats.tree_seconds)
+
+    # the trained model, served through a fresh FederatedPredictor
+    ens = PackedEnsemble.from_model(model, device=dev)
+    served = FederatedPredictor(ens.guest, ens.hosts,
+                                device=dev).predict_score(Xg, Xh)
+    if not np.array_equal(served, ref_scores):
+        fail("the trained model served through FederatedPredictor differs "
+             "from the reference scores")
+    print(f"training {TRAIN_SCALE}: trees, scores ({len(ref_scores)} rows), "
+          f"ledgers and Stats counters equal to the JAX reference; served "
+          f"again through FederatedPredictor, equal; fit {fit_s:.3f} s; "
+          f"seconds per tree " + ", ".join(f"{t:.3f}" for t in tree_s)
+          + f" (the first is warm-up); launches {launches}; carry_fix "
+          f"iterations {carry_iters}", flush=True)
+
+    # untraced wall of the boosting rounds, then the same rounds traced
+    params = SBTParams(device=dev, **ref["params"])
+    m2 = VerticalBoosting(params)
+    score = m2.begin_fit(Xg, y, Xh)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for t in range(params.n_trees):
+        score = m2.boost_round(t, score)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+
+    m3 = VerticalBoosting(params)
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with stage_ranges(torch) as stage_names:
+        with profile(activities=acts) as prof_bins:
+            score = m3.begin_fit(Xg, y, Xh)
+            torch.cuda.synchronize()
+        with profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            for t in range(params.n_trees):
+                score = m3.boost_round(t, score)
+            torch.cuda.synchronize()
+            traced_ms = (time.perf_counter() - t0) * 1e3
+    if [signature_json(t) for t in m3.trees] != ref["signatures"]:
+        fail("the traced training run grew other trees")
+    kernels = device_work(prof)
+    busy = sum(r["device_ms"] for r in kernels)
+    if busy <= 0:
+        fail("the profiler saw no device time in the boosting rounds")
+    stages = stage_times(prof)
+    binning = stage_times(prof_bins).get("bins")
+    quiet = [k for k in stage_names
+             if not (binning if k == "bins" else stages.get(k))]
+    if quiet:
+        fail(f"the profile saw no call of the stages {quiet}: their ranges "
+             f"were bypassed")
+    n_trees = params.n_trees
+    res = dict(
+        fixture=TRAIN_SCALE, params=ref["params"], data=ref["data"],
+        equal_to_jax=True, fit_s=fit_s, tree_seconds=tree_s,
+        warmup_tree_s=tree_s[0],
+        steady_tree_s=float(np.mean(tree_s[1:])) if len(tree_s) > 1 else None,
+        launches=launches, carry_fix_iterations=carry_iters,
+        n_hist_launches=model.stats.n_hist_launches,
+        n_split_roundtrips=model.stats.n_split_roundtrips,
+        rounds_wall_ms=wall_ms, rounds_traced_ms=traced_ms,
+        rounds_device_busy_ms=busy, idle_share=1.0 - busy / wall_ms,
+        rounds_device_launches=sum(r["calls"] for r in kernels),
+        traced_idle_share=1.0 - busy / traced_ms,
+        per_tree_stage_device_ms={k: v["device_ms"] / n_trees
+                                  for k, v in stages.items()},
+        per_tree_stage_host_ms={k: v["cpu_ms"] / n_trees
+                                for k, v in stages.items()},
+        stages=stages, binning=binning, kernels=kernels[:25])
+    print(f"training profile: {n_trees} rounds in {wall_ms:.3f} ms untraced "
+          f"({traced_ms:.3f} traced), device busy {busy:.3f} ms, idle share "
+          f"{res['idle_share']:.3f}; per tree by stage, device ms / host "
+          f"ms: " + "; ".join(f"{k}={v['device_ms'] / n_trees:.3f}/"
+                              f"{v['cpu_ms'] / n_trees:.3f}"
+                              for k, v in sorted(stages.items()))
+          + f"; binning (once per fit) device ms / host ms "
+          f"{binning['device_ms']:.3f}/{binning['cpu_ms']:.3f}"
+          + "; top kernels: " + "; ".join(
+              f"{r['name'][:40]}={r['device_ms']:.3f}x{r['calls']}"
+              for r in kernels[:6]), flush=True)
+    return res
+
+
+def two_host_phase(dev) -> dict:
+    model, bad, fit_s = train_and_compare(TRAIN_TWO_HOSTS, dev)
+    if bad:
+        fail(f"{TRAIN_TWO_HOSTS} differs from the JAX reference: "
+             + "; ".join(bad))
+    print(f"training {TRAIN_TWO_HOSTS}: trees, scores, ledgers and Stats "
+          f"counters equal to the JAX reference ({len(model.host_data)} "
+          f"hosts, fit {fit_s:.3f} s)", flush=True)
+    return dict(fixture=TRAIN_TWO_HOSTS, hosts=len(model.host_data),
+                equal_to_jax=True, fit_s=fit_s)
+
+
 def serve_window(pred, X, n_g: int, n_rows: int, n_batches: int) -> list:
     """``n_batches`` back-to-back batches of ``n_rows`` rows (numpy in,
     numpy scores out), cycling over the rows of X; the host-clock time of
@@ -388,8 +838,11 @@ def main() -> int:
     thr_h = load_host(os.path.join(FIXTURE, "host0"), dev).thresholds
 
     krows = kernel_phase(torch, dev, thr_g, thr_h, X)
+    hrows = layer_hist_phase(torch, dev)
     pred, serving = serving_phase(torch, dev, ref, X)
     branches = branch_phase(torch, dev)
+    training = training_phase(torch, dev)
+    two_hosts = two_host_phase(dev)
     n_g = int(ref["n_guest"])
     latency = [latency_phase(pred, X, n_g, int(ref["n"]), 100),
                latency_phase(pred, X, n_g, N_BIG, 8)]
@@ -398,16 +851,28 @@ def main() -> int:
 
     main_row = next(r for r in krows
                     if r["party"] == "host" and r["shape"][0] == N_BIG)
-    kernels = {"kernels": [dict(
-        name="bucketize", route="cuda",
-        source="src/repro_torch/csrc/bucketize.cu",
-        replaces="src/repro/kernels/binning/binning.py:30",
-        launches=serving["launches"]["bucketize"],
-        max_abs_err=max(r["max_abs_err"] for r in krows),
-        ms=main_row["ms"], plain_ms=main_row["plain_ms"],
-        bound_ms=main_row["bound_ms"], bound_by=main_row["bound_by"],
-        library_ms=main_row["library_ms"], shape=main_row["shape"],
-        matches_plain=True)]}
+    k1_row = hrows[0]                       # layer 0: 65536 rows, 1 node
+    kernels = {"kernels": [
+        dict(name="bucketize", route="cuda",
+             source="src/repro_torch/csrc/bucketize.cu",
+             replaces="src/repro/kernels/binning/binning.py:42",
+             launches=serving["launches"]["bucketize"],
+             launches_by_path={"serving": serving["launches"]["bucketize"],
+                               "training": training["launches"]["bucketize"]},
+             max_abs_err=max(r["max_abs_err"] for r in krows),
+             ms=main_row["ms"], plain_ms=main_row["plain_ms"],
+             bound_ms=main_row["bound_ms"], bound_by=main_row["bound_by"],
+             library_ms=main_row["library_ms"], shape=main_row["shape"],
+             matches_plain=True),
+        dict(name="layer_hist", route="cuda",
+             source="src/repro_torch/csrc/layer_hist.cu",
+             replaces="src/repro/kernels/histogram/histogram.py:142",
+             launches=training["launches"]["layer_hist"],
+             max_abs_err=max(r["max_abs_err"] for r in hrows),
+             ms=k1_row["ms"], plain_ms=k1_row["plain_ms"],
+             bound_ms=k1_row["bound_ms"], bound_by=k1_row["bound_by"],
+             library_ms=k1_row["library_ms"], shape=k1_row["shape"],
+             n_nodes=k1_row["n_nodes"], matches_plain=True)]}
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
               "count": torch.cuda.device_count()}
     if args.json:
@@ -416,8 +881,10 @@ def main() -> int:
         with open(args.json, "w") as f:
             json.dump(dict(card=card, torch=torch.__version__,
                            cuda=torch.version.cuda, build_logs=build_logs,
-                           kernel_rows=krows, serving=serving,
-                           branches=branches, latency=latency, profile=prof,
+                           kernel_rows=krows, layer_hist_rows=hrows,
+                           serving=serving, branches=branches,
+                           training=training, two_hosts=two_hosts,
+                           latency=latency, profile=prof,
                            **kernels, device=device), f, indent=1)
     print(json.dumps(kernels))
     print(card)

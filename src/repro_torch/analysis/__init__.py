@@ -1,2 +1,3 @@
 """The port's copies of the privacy and wire-protocol declarations that
-its serving path uses (the static analyzer itself is not ported)."""
+its training and serving paths use (the static analyzer itself is not
+ported)."""

@@ -1,0 +1,179 @@
+"""Histogram engines (paper Algorithms 1 & 5), layer-batched.
+
+The port of the JAX package's ``core/histogram.py``, for the paths the
+port runs so far (dense features, one device, limb ciphers):
+
+* :class:`CipherHistogram` -- host side.  Accumulates the packed-GH
+  ciphertexts of every direct-mode frontier node of one tree layer in ONE
+  launch of the layer histogram kernel (``kernels/histogram``: lazy int32
+  limb sums over the composite index ``node_slot * n_bins + bin``),
+  subtracts sibling histograms from cached parents in the still-lazy limb
+  domain (``cipher.lazy_sub``), and canonicalizes the whole layer with ONE
+  ``cipher.reduce``; the bin cumsum runs in the ciphertext domain.  Every
+  tensor stays on the frontier's device.
+* :class:`PlainHistogram` -- guest side (and the local baseline).  The
+  same shapes in plaintext float64 via ``np.add.at`` on the host, exactly
+  as the reference: float sums depend on order, so they stay in numpy to
+  stay bit-identical.
+
+Ciphertext batches carry a slot axis (SBT-MO packs ``n_k`` ciphertexts
+per instance): cts are (n, n_slots, L) limbs and histograms (n_f, n_b,
+n_slots, L).  The sparse zero-bin recovery, round-forests, the
+out-of-core stream and the mesh dispatch are not ported yet.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..kernels.histogram import (layer_ciphertext_histogram,
+                                 layer_count_histogram)
+from .binning import BinnedData
+from .he import limbs
+
+
+class PlainHistogram:
+    """Plaintext (g, h, count) histograms: (n_f, n_b) float64 / int64."""
+
+    def __init__(self, n_bins: int):
+        self.n_bins = n_bins
+
+    def layer_histograms(self, data: BinnedData, g: np.ndarray, h: np.ndarray,
+                         node_rows: dict, direct: list, subtract: list,
+                         cache: dict) -> dict:
+        """Batched node histograms for one tree layer.
+
+        node_rows: {nid: row ids}; direct: nids accumulated directly (one
+        composite ``np.add.at`` pass per feature); subtract: (nid, parent,
+        sibling) triples resolved as parent - sibling from ``cache`` /this
+        layer's direct results.  Returns {nid: (G, H, C)}.
+        """
+        out = {}
+        if direct:
+            n_d, n_b = len(direct), self.n_bins
+            rows_cat = np.concatenate([node_rows[nid] for nid in direct])
+            slot_cat = np.concatenate(
+                [np.full(len(node_rows[nid]), k, np.int64)
+                 for k, nid in enumerate(direct)])
+            n_f = data.n_features
+            out_dim = np.asarray(g).shape[1:]
+            G = np.zeros((n_f, n_d * n_b) + out_dim)
+            H = np.zeros((n_f, n_d * n_b) + out_dim)
+            C = np.zeros((n_f, n_d * n_b), np.int64)
+            bins = data.bins[rows_cat]                # (r, n_f)
+            gr, hr = g[rows_cat], h[rows_cat]
+            comp = slot_cat[:, None] * n_b + bins     # composite (node, bin)
+            for f in range(n_f):
+                np.add.at(G[f], comp[:, f], gr)
+                np.add.at(H[f], comp[:, f], hr)
+                np.add.at(C[f], comp[:, f], 1)
+            Gn = np.moveaxis(G.reshape((n_f, n_d, n_b) + out_dim), 1, 0)
+            Hn = np.moveaxis(H.reshape((n_f, n_d, n_b) + out_dim), 1, 0)
+            Cn = np.moveaxis(C.reshape(n_f, n_d, n_b), 1, 0)
+            for k, nid in enumerate(direct):
+                out[nid] = (Gn[k], Hn[k], Cn[k])
+        for nid, par, sib in subtract:
+            out[nid] = self.subtract(cache[par], out[sib])
+        return out
+
+    @staticmethod
+    def subtract(parent, child):
+        return tuple(p - c for p, c in zip(parent, child))
+
+    @staticmethod
+    def cumsum(hist):
+        return tuple(np.cumsum(x, axis=1) for x in hist)
+
+
+class CipherHistogram:
+    """Ciphertext histograms over limb tensors on one device."""
+
+    def __init__(self, cipher, n_bins: int, stats=None, tracer=None):
+        from ..obs.trace import NULL_TRACER
+        self.cipher = cipher
+        self.n_bins = n_bins
+        self.stats = stats          # optional party.Stats for launch counts
+        self.tracer = tracer if tracer is not None else NULL_TRACER
+
+    def _count_launch(self):
+        if self.stats is not None:
+            self.stats.n_hist_launches += 1
+
+    def layer_histograms(self, frontier, node_rows: dict, direct: list,
+                         subtract: list) -> dict:
+        """All frontier histograms of one tree layer in one batch.
+
+        frontier:  a ``core.frontier.CipherFrontier`` -- the device-resident
+                   layer state: bins and width-padded ciphertext limbs
+                   (placed once per tree), plus the cache of canonical
+                   parent histograms as device tensors.
+        node_rows: {nid: row positions into the frontier's view}.
+        direct:    nids accumulated directly -- ONE kernel launch for all.
+        subtract:  (nid, parent, sibling) triples; the parent's canonical
+                   histogram is read from the frontier cache, the sibling
+                   must be in ``direct``.  Subtraction happens in the lazy
+                   limb domain (``cipher.lazy_sub``) so a SINGLE
+                   ``cipher.reduce`` canonicalizes direct and subtracted
+                   nodes together.
+        Returns {nid: (hist, counts)}; the frontier owns cache writes.
+        """
+        n_f, n_b = frontier.data.n_features, self.n_bins
+        slot_of = {nid: k for k, nid in enumerate(direct)}
+
+        out = {}
+        n_d = len(direct)
+        counts = np.zeros((n_d, n_f, n_b), np.int64)
+        lazy = None
+        if n_d:
+            node_slot = frontier.layer_slots(node_rows, direct)
+            counts = np.asarray(layer_count_histogram(
+                frontier.bins_np, node_slot, n_d, n_b)).astype(np.int64)
+            lazy = self._layer_dispatch(frontier, node_slot, n_d)
+            n, n_slots, width = frontier.state.cts.shape
+            lazy = lazy.reshape(n_d, n_f, n_b, n_slots, width)
+
+        # lazy subtraction, one reduce for the whole layer
+        sub_lazy = [self.cipher.lazy_sub(frontier.hist(par),
+                                         lazy[slot_of[sib]],
+                                         len(node_rows[sib]))
+                    for _, par, sib in subtract]
+        parts = ([lazy] if n_d else []) + \
+            ([torch.stack(sub_lazy)] if sub_lazy else [])
+        if not parts:
+            return out
+        with self.tracer.span("carry_fix", nodes=n_d + len(subtract)):
+            canon = self.cipher.reduce(torch.cat(parts, dim=0))
+        for k, nid in enumerate(direct):
+            out[nid] = (canon[k], counts[k])
+        for j, (nid, par, sib) in enumerate(subtract):
+            out[nid] = (canon[n_d + j],
+                        frontier.count(par) - counts[slot_of[sib]])
+        return out
+
+    def _layer_dispatch(self, frontier, node_slot: np.ndarray, n_d: int):
+        """One accumulation launch for the layer's direct nodes.  The JAX
+        package pads the node axis to a power of two to cap ``jit``
+        retraces; the port runs eagerly and launches with ``n_d`` nodes,
+        which yields the same first ``n_d`` node histograms."""
+        state = frontier.state
+        flat = frontier.cts_flat          # flattened once per tree
+        if self.stats is not None:
+            self.stats.peak_block_bytes = max(
+                self.stats.peak_block_bytes,
+                (state.bins.numel() + int(node_slot.size)
+                 + flat.numel()) * 4)
+        slot_dev = torch.as_tensor(node_slot).to(flat.device)
+        lazy = layer_ciphertext_histogram(state.bins, slot_dev, flat, n_d,
+                                          self.n_bins)
+        self._count_launch()
+        return lazy
+
+    def cumsum(self, hist: torch.Tensor) -> torch.Tensor:
+        """Prefix-sum over the bin axis in the ciphertext domain, for a
+        single histogram (n_f, n_b, slots, L) or a layer-batched stack with
+        any leading axes (..., n_f, n_b, slots, L).  The sum stays int32,
+        as the reference's ``jnp.cumsum`` does."""
+        wide = limbs.pad_limbs(hist, self.cipher.hist_width)
+        return self.cipher.reduce(torch.cumsum(wide, dim=hist.dim() - 3,
+                                               dtype=torch.int32))

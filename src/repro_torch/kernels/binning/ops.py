@@ -1,5 +1,6 @@
-"""Public bucketize: the kernel on a CUDA tensor, the plain version on a
-CPU tensor.
+"""Public binning wrappers: quantile threshold fitting (numpy, a copy of
+the JAX package's) and bucketize, which runs the kernel on a CUDA tensor
+and the plain version on a CPU tensor.
 
 There is no switch and no fallback: which version runs follows from the
 device the values lie on, and any other device raises.
@@ -9,10 +10,25 @@ path went through the kernel.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from .binning import bucketize_cuda
 from .ref import bucketize_ref
+
+
+def fit_quantile_thresholds(values: np.ndarray, n_bins: int) -> np.ndarray:
+    """Per-feature quantile split points: (n_f, n_b-1) fp32, +inf padded
+    where a feature has fewer distinct quantiles (degenerate features)."""
+    v = np.asarray(values, np.float64)
+    qs = np.linspace(0, 1, n_bins + 1)[1:-1]
+    thr = np.quantile(v, qs, axis=0).T.astype(np.float32)   # (n_f, n_b-1)
+    # collapse duplicate thresholds to +inf so empty bins stay empty
+    out = np.full_like(thr, np.inf)
+    for f in range(thr.shape[0]):
+        uniq = np.unique(thr[f])
+        out[f, : len(uniq)] = uniq
+    return out
 
 
 def bucketize(values: torch.Tensor, thresholds: torch.Tensor

@@ -6,4 +6,5 @@ from .engine import FederatedPredictor, PartyBits  # noqa: F401
 from .export import (export_guest, export_host, export_model,  # noqa: F401
                      load_ensemble, load_guest, load_host)
 from .packed import (GuestHalf, HostHalf, PackedEnsemble,  # noqa: F401
-                     PartySlice, guest_half_from_numpy, host_half_from_numpy)
+                     PartySlice, guest_half_from_numpy, host_half_from_keys,
+                     host_half_from_numpy, pack_guest)

@@ -16,8 +16,9 @@ The layout is the JAX package's (``serving/packed.py`` there):
 
 Halves are built from numpy fields (:meth:`PackedEnsemble.from_numpy`), in
 the layout the export format stores them, so a model exported by either
-package loads here through one code path.  Packing a trained port model
-(``from_model``/``pack_guest``) comes with the training slice.
+package, and a model the port trained (:meth:`PackedEnsemble.from_model`),
+load through one code path.  Nothing here is row-level: a packed model is
+a pure function of the trees.
 """
 
 from __future__ import annotations
@@ -27,6 +28,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from ..core.tree import GUEST
 from ..device import resolve_device, to_device
 
 
@@ -142,3 +144,127 @@ class PackedEnsemble:
         dict).  ``load_ensemble`` goes through here too."""
         return cls(guest=guest_half_from_numpy(guest, device),
                    hosts=[host_half_from_numpy(h, device) for h in hosts])
+
+    @classmethod
+    def from_model(cls, model, device="cuda") -> "PackedEnsemble":
+        """Flatten a trained ``VerticalBoosting`` (in-process hosts) into
+        serving halves on ``device``, through :meth:`from_numpy`."""
+        guest, host_keys = _guest_fields(model)
+        trees = model.trees
+        hosts = [_host_fields(h, keys, [t.host_tables[h] for t in trees],
+                              model.host_data[h].thresholds,
+                              model.params.n_bins)
+                 for h, keys in enumerate(host_keys)]
+        return cls.from_numpy(guest, hosts, device)
+
+
+def _guest_fields(model) -> tuple:
+    """The guest half's numpy fields (the layout :meth:`from_numpy` and
+    the export format take), and per host its internal nodes in bit-column
+    order as ``(tree_idx, nid)`` pairs; host split content is not read."""
+    trees = model.trees
+    if not trees:
+        raise ValueError("cannot pack an unfitted model (no trees)")
+    n_hosts = len(model.host_data)
+    for t in trees:
+        # the grower keeps row->leaf maps train-side; a tree that still
+        # carries one must never reach an exportable ensemble
+        if hasattr(t, "leaf_rows"):
+            raise AssertionError(
+                "FederatedTree retains row-level training state "
+                "(leaf_rows); packed models must be training-set free")
+
+    arrays = [t.node_arrays() for t in trees]
+
+    # pass 1: bit-column ids -- guest block, then host blocks (hid
+    # order), each ordered by (tree, nid)
+    owners = [GUEST] + list(range(n_hosts))
+    internal = {p: [] for p in owners}
+    n_leaves = 0
+    for ti, a in enumerate(arrays):
+        for nid in range(len(a["party"])):
+            if a["left"][nid] != -1:
+                internal[int(a["party"][nid])].append((ti, nid))
+            else:
+                n_leaves += 1
+    k_parties = np.asarray([len(internal[p]) for p in owners], np.int32)
+    n_nodes = int(k_parties.sum()) + n_leaves
+
+    gid = {}
+    col = 0
+    for p in owners:
+        for key in internal[p]:
+            gid[key] = col
+            col += 1
+    for ti, a in enumerate(arrays):
+        for nid in range(len(a["party"])):
+            if a["left"][nid] == -1:
+                gid[(ti, nid)] = col
+                col += 1
+
+    w_dim = arrays[0]["weight"].shape[1]
+    step = np.empty((n_nodes, 2), np.int32)
+    leaf_w = np.zeros((n_nodes, w_dim), np.float64)
+    depth = 0
+    roots = np.empty(len(trees), np.int32)
+    for ti, a in enumerate(arrays):
+        roots[ti] = gid[(ti, 0)]
+        depth = max(depth, int(a["depth"].max()))
+        for nid in range(len(a["party"])):
+            g = gid[(ti, nid)]
+            if a["left"][nid] != -1:
+                step[g, 0] = gid[(ti, int(a["right"][nid]))]
+                step[g, 1] = gid[(ti, int(a["left"][nid]))]
+            else:
+                step[g] = g
+                leaf_w[g] = a["weight"][nid]
+
+    fid = np.empty(len(internal[GUEST]), np.int32)
+    bid = np.empty(len(internal[GUEST]), np.int32)
+    for i, (ti, nid) in enumerate(internal[GUEST]):
+        fid[i] = int(arrays[ti]["fid"][nid])
+        bid[i] = int(arrays[ti]["bid"][nid])
+    p = model.params
+    fields = dict(
+        step=step, roots=roots,
+        tree_class=np.asarray(model.tree_class, np.int32),
+        leaf_w=leaf_w, depth=depth, k_parties=k_parties, fid=fid, bid=bid,
+        thresholds=np.asarray(model.guest_data.thresholds, np.float32),
+        n_bins=p.n_bins, objective=p.objective, n_classes=p.n_classes,
+        init_score=(np.asarray(model.init_score, np.float64)
+                    if p.objective != "binary"
+                    else float(model.init_score)))
+    return fields, [internal[h] for h in range(n_hosts)]
+
+
+def _host_fields(hid: int, keys: list, tables: list, thresholds,
+                 n_bins: int) -> dict:
+    """One host's numpy fields from the guest-published bit-column key
+    order and the host's OWN per-tree (fid, bid) tables
+    (``tables[tree_idx][nid]``)."""
+    fid = np.empty(len(keys), np.int32)
+    bid = np.empty(len(keys), np.int32)
+    for i, (ti, nid) in enumerate(keys):
+        fid[i], bid[i] = tables[int(ti)][int(nid)]
+    return dict(hid=hid, n_bins=n_bins, fid=fid, bid=bid,
+                thresholds=np.asarray(thresholds, np.float32))
+
+
+def pack_guest(model, device="cuda") -> tuple:
+    """Pack the guest's serving half on ``device`` from a trained model,
+    WITHOUT touching host split content.  Returns ``(guest_half,
+    host_keys)``: ``host_keys[hid]`` is that host's internal nodes in
+    bit-column order as ``(tree_idx, nid)`` pairs, all a host needs to
+    build its own half (:func:`host_half_from_keys`)."""
+    fields, host_keys = _guest_fields(model)
+    return guest_half_from_numpy(fields, device), host_keys
+
+
+def host_half_from_keys(hid: int, keys: list, tables: dict, thresholds,
+                        n_bins: int, device="cuda") -> HostHalf:
+    """Build one host's serving half on ``device`` from the
+    guest-published key order and the host's own per-tree (fid, bid)
+    tables (``tables[tree_idx][nid]``): the split content stays with the
+    host."""
+    return host_half_from_numpy(
+        _host_fields(hid, keys, tables, thresholds, n_bins), device)

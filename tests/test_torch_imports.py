@@ -18,9 +18,11 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core.binning import BinnedData, apply_binning
+from repro_torch.core import LocalGBDT, SBTParams, VerticalBoosting
+from repro_torch.core.binning import BinnedData, apply_binning, bin_features
 from repro_torch.serving import (FederatedPredictor, PackedEnsemble,
-                                 load_ensemble, load_guest, load_host)
+                                 load_ensemble, load_guest, load_host,
+                                 pack_guest)
 from repro_torch.serving.export import _guest_fields, _host_fields
 
 torch.set_num_threads(1)
@@ -50,7 +52,7 @@ def _imported_roots(path):
 
 def test_no_port_file_imports_jax_or_the_jax_package():
     files = _port_files()
-    assert len(files) > 15
+    assert len(files) > 35
     bad = {os.path.relpath(p, ROOT): sorted(set(_imported_roots(p))
                                             & set(FORBIDDEN))
            for p in files}
@@ -74,7 +76,7 @@ def test_every_port_module_imports_without_jax():
     out = subprocess.run([sys.executable, "-c", code], env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 15
+    assert int(out.stdout.split()[-1]) >= 35
 
 
 def _cpu_ensemble():
@@ -94,7 +96,21 @@ ENTRY_POINTS = {
         np.zeros((4, 2), np.float32),
         BinnedData(bins=torch.zeros((0, 2), dtype=torch.int32),
                    thresholds=np.zeros((2, 3), np.float32), n_bins=4)),
+    "bin_features": lambda: bin_features(np.zeros((4, 2), np.float32), 4),
+    "VerticalBoosting": lambda: VerticalBoosting(SBTParams()),
+    "LocalGBDT": lambda: LocalGBDT(SBTParams()),
+    "PackedEnsemble.from_model": lambda: PackedEnsemble.from_model(
+        _cpu_model()),
+    "pack_guest": lambda: pack_guest(_cpu_model()),
 }
+
+
+def _cpu_model():
+    X = np.random.default_rng(0).normal(0, 1, (64, 4)).astype(np.float32)
+    y = (X[:, 0] > 0).astype(np.float64)
+    return VerticalBoosting(SBTParams(n_trees=1, max_depth=2, n_bins=8,
+                                      device="cpu")).fit(X[:, :2], y,
+                                                         [X[:, 2:]])
 
 
 @pytest.mark.parametrize("entry", sorted(ENTRY_POINTS))

@@ -1,0 +1,150 @@
+"""The port's limb substrate against the JAX package's, on the CPU.
+
+Every operation the plain cipher and the grower use (carry and borrow
+propagation, add, sub, shifts, masks, padding) must give the same int32
+limbs as ``repro.core.he.limbs`` and the same python ints.  Inputs come
+from seeded numpy draws: the cases of ``tests/test_limbs.py`` (canonical
+big ints) plus lazy, mixed-sign limb vectors of the kind histogram
+subtraction leaves behind.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from repro.core.he import limbs as jl
+
+from repro_torch.core.he import limbs as tl
+
+torch.set_num_threads(1)
+
+
+def _bigints(rng, n, bits=200):
+    return [int.from_bytes(rng.bytes(bits // 8), "little") for _ in range(n)]
+
+
+def _both(fn_t, fn_j, *arrays):
+    """fn over torch tensors and fn over jnp arrays, as numpy."""
+    got = fn_t(*[torch.from_numpy(np.asarray(a, np.int32)) for a in arrays])
+    want = fn_j(*[jnp.asarray(a, jnp.int32) for a in arrays])
+    return got.numpy(), np.asarray(want)
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_roundtrip_matches_jax(seed):
+    rng = np.random.default_rng(seed)
+    xs = _bigints(rng, 8) + [0, 1, (1 << 256) - 1]
+    a = tl.from_pyints(xs, 32)
+    np.testing.assert_array_equal(a, jl.from_pyints(xs, 32))
+    assert tl.to_pyints(a) == xs
+    assert tl.to_pyints(torch.from_numpy(a)) == xs
+    with pytest.raises(ValueError, match="unsigned"):
+        tl.from_pyints([-1], 4)
+    with pytest.raises(ValueError, match="does not fit"):
+        tl.from_pyints([1 << 40], 4)
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_add_sub_match_jax(seed):
+    rng = np.random.default_rng(10 + seed)
+    xs, ys = _bigints(rng, 6), _bigints(rng, 6)
+    a, b = tl.from_pyints(xs, 32), tl.from_pyints(ys, 32)
+    got, want = _both(tl.add, jl.add, a, b)
+    np.testing.assert_array_equal(got, want)
+    assert tl.to_pyints(got) == [x + y for x, y in zip(xs, ys)]
+    hi = tl.from_pyints([max(x, y) for x, y in zip(xs, ys)], 32)
+    lo = tl.from_pyints([min(x, y) for x, y in zip(xs, ys)], 32)
+    got, want = _both(tl.sub, jl.sub, hi, lo)
+    np.testing.assert_array_equal(got, want)
+    assert tl.to_pyints(got) == [abs(x - y) for x, y in zip(xs, ys)]
+
+
+def _lazy_mixed(rng, n_vec=16, k=40, L=24):
+    """A canonical parent sum, minus an un-carried child sum, plus another
+    un-carried sum: mixed-sign limbs whose values are >= 0, as lazy
+    subtraction and lazy accumulation leave them."""
+    cts = rng.integers(0, 256, (n_vec, k, L))
+    take = rng.random((n_vec, k)) < rng.random((n_vec, 1))
+    extra = rng.integers(0, 256, (n_vec, 4, L)).sum(axis=1)
+    ints = [tl.to_pyints(cts[i]) for i in range(n_vec)]
+    parent = tl.from_pyints([sum(v) for v in ints], L + 2).astype(np.int64)
+    child = (cts * take[..., None]).sum(axis=1)
+    lazy = parent - np.pad(child, ((0, 0), (0, 2))) \
+        + np.pad(extra, ((0, 0), (0, 2)))
+    extra_ints = [sum(int(x) << (8 * j) for j, x in enumerate(row))
+                  for row in extra]
+    want = [sum(x for x, t in zip(v, take[i]) if not t) + extra_ints[i]
+            for i, v in enumerate(ints)]
+    return lazy.astype(np.int32), want
+
+
+@pytest.mark.parametrize("seed", range(6))
+def test_carry_fix_mixed_sign_matches_jax(seed):
+    rng = np.random.default_rng(20 + seed)
+    lazy, want = _lazy_mixed(rng)
+    assert (lazy < 0).any() and (lazy > 255).any()
+    before = tl.carry_fix.iterations
+    got, ref = _both(tl.carry_fix, jl.carry_fix, lazy)
+    np.testing.assert_array_equal(got, ref)
+    assert ((got >= 0) & (got <= 255)).all()
+    assert tl.to_pyints(got) == want
+    assert tl.carry_fix.iterations > before
+
+
+def test_carry_fix_of_lazy_sums_and_overflow_match_jax():
+    rng = np.random.default_rng(3)
+    lazy = rng.integers(0, 255 * 70000, (5, 11)).astype(np.int32)
+    got, want = _both(tl.carry_fix, jl.carry_fix, lazy)
+    np.testing.assert_array_equal(got, want)
+    # overflow past the last limb is dropped, arithmetic mod 256**L
+    top = np.full((2, 3), 255, np.int32)
+    top[:, 0] = 256
+    got, want = _both(tl.carry_fix, jl.carry_fix, top)
+    np.testing.assert_array_equal(got, want)
+    assert (got == 0).all()
+    canon = rng.integers(0, 256, (4, 7)).astype(np.int32)
+    before = tl.carry_fix.iterations
+    np.testing.assert_array_equal(
+        tl.carry_fix(torch.from_numpy(canon)).numpy(), canon)
+    assert tl.carry_fix.iterations == before
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_borrow_fix_matches_jax(seed):
+    rng = np.random.default_rng(30 + seed)
+    xs = _bigints(rng, 6, 160)
+    ys = [x // (2 + i) for i, x in enumerate(xs)]
+    diff = tl.from_pyints(xs, 20) - tl.from_pyints(ys, 20)
+    assert (diff < 0).any()
+    got, want = _both(tl.borrow_fix, jl.borrow_fix, diff)
+    np.testing.assert_array_equal(got, want)
+    assert tl.to_pyints(got) == [x - y for x, y in zip(xs, ys)]
+
+
+@pytest.mark.parametrize("k", [0, 1, 7, 8, 13, 64, 138, 300])
+def test_shift_left_and_mask_match_jax(k):
+    rng = np.random.default_rng(k)
+    xs = _bigints(rng, 5)
+    a = tl.from_pyints(xs, 32)
+    for out_L in (41, None):
+        got, want = _both(lambda t: tl.shift_left_bits(t, k, out_L),
+                          lambda j: jl.shift_left_bits(j, k, out_L), a)
+        np.testing.assert_array_equal(got, want)
+    got = tl.shift_left_bits(torch.from_numpy(a), k, 41).numpy()
+    assert tl.to_pyints(got) == [(x << k) % (1 << 328) for x in xs]
+    got, want = _both(lambda t: tl.mask_bits(t, k),
+                      lambda j: jl.mask_bits(j, k), a)
+    np.testing.assert_array_equal(got, want)
+    assert tl.to_pyints(got) == [x & ((1 << k) - 1) for x in xs]
+
+
+def test_pad_limbs_matches_jax():
+    a = np.arange(12, dtype=np.int32).reshape(2, 2, 3)
+    for w in (1, 3, 7):
+        got, want = _both(lambda t: tl.pad_limbs(t, w),
+                          lambda j: jl.pad_limbs(j, w), a)
+        np.testing.assert_array_equal(got, want)
+    assert tl.num_limbs_for_bits(1024) == jl.num_limbs_for_bits(1024) == 128
+    assert (tl.RADIX_BITS, tl.LIMB_MASK) == (jl.RADIX_BITS, jl.LIMB_MASK)

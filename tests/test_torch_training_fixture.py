@@ -1,0 +1,64 @@
+"""The committed training references that ``chip_smoke.py`` holds the card
+to, checked on the CPU.
+
+``src/repro_torch/fixtures/train_*`` were written by
+``tests/make_torch_training_fixture.py`` from JAX fits.  The small
+two-host reference must still be what the JAX package fits now, and both
+references (the two-host case and the 65,536-row scale shape) must be
+what the port fits on the CPU, through the same comparison
+``chip_smoke.py`` makes on the card: tree signatures, scores over the
+training rows, ``channel.summary()`` after the fit and after scoring, and
+the integer ``Stats`` counters, all equal.
+"""
+
+import os
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from make_torch_training_fixture import fit_reference
+
+ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
+sys.path.insert(0, ROOT)
+import chip_smoke  # noqa: E402
+
+torch.set_num_threads(2)
+
+
+def test_two_host_reference_is_the_jax_fit():
+    ref, scores = chip_smoke.training_reference(chip_smoke.TRAIN_TWO_HOSTS)
+    want, want_scores = fit_reference(chip_smoke.TRAIN_TWO_HOSTS)
+    # JSON turns the signature tuples into lists
+    assert ref["signatures"] == [[list(r) for r in t]
+                                 for t in want["signatures"]]
+    assert {k: v for k, v in ref.items() if k != "signatures"} == \
+        {k: v for k, v in want.items() if k != "signatures"}
+    np.testing.assert_array_equal(scores, want_scores)
+
+
+@pytest.mark.parametrize("name", [chip_smoke.TRAIN_TWO_HOSTS,
+                                  chip_smoke.TRAIN_SCALE])
+def test_port_cpu_fit_equals_committed_reference(name):
+    model, bad, _ = chip_smoke.train_and_compare(name, "cpu")
+    assert bad == []
+    ref, _ = chip_smoke.training_reference(name)
+    assert model.stats.n_hist_launches == ref["stats"]["n_hist_launches"] > 0
+    assert len(model.host_data) == len(ref["data"]["bounds"]) - 2
+
+
+def test_compare_training_reports_each_difference():
+    ref, scores = chip_smoke.training_reference(chip_smoke.TRAIN_TWO_HOSTS)
+    model, bad, _ = chip_smoke.train_and_compare(chip_smoke.TRAIN_TWO_HOSTS,
+                                                 "cpu")
+    assert bad == []
+    stats = dict(ref["stats"], n_hist_launches=-1)
+    worse = scores.copy()
+    worse[3] += 1e-12
+    summary = dict(ref["summary_fit"], extra={"bytes": 1, "msgs": 1})
+    bad = chip_smoke.compare_training(ref, scores, model.trees[:2], summary,
+                                      stats, worse, ref["summary_predict"])
+    assert len(bad) == 4
+    assert "2 trees" in bad[0] and "ledger after fit" in bad[1]
+    assert "n_hist_launches" in bad[2] and "at 1 rows" in bad[3]
