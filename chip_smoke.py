@@ -8,7 +8,8 @@ Phases, each fatal on failure (nothing is caught and carried on):
 1. Card check: exits 1 when ``torch.cuda.is_available()`` is false; prints
    ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader``.
 2. Build: compiles every ``src/repro_torch/csrc/*.cu`` with ``nvcc`` for
-   ``sm_90a`` and prints the seconds and what ptxas reported.
+   ``sm_90a``, one ``nvcc`` per source, all started together, and prints
+   the seconds and what ptxas reported.
 3. Bucketize kernel: against its plain PyTorch version on the card,
    ``torch.equal``, at the serving path's shapes (the fixture's own
    thresholds, 31 per feature) and on an edge batch (NaN, +-inf, -0.0,
@@ -26,18 +27,27 @@ Phases, each fatal on failure (nothing is caught and carried on):
    past the kernel's shared memory must raise.  Times beside its bound,
    its plain version and one ``index_add_`` over the composite index (a
    yardstick the port never calls).
-5. Serving phase (the serving path): loads the committed JAX export
+5. Fixed-constant multiply kernel (K2): against its plain version,
+   ``torch.equal``, at the affine path's shapes (encryption, the two
+   Barrett products and decryption at 1024- and 512-bit keys, 65,536 rows)
+   and on edge inputs (all-255 x and b, zeros, 1 and 65,537 rows, an
+   output narrower than the product); a row tile past the kernel's shared
+   memory must raise, and ``modmul_fixed`` on the card must equal python
+   ints' ``(v * b) % n``.  Times beside its bound, its plain version and
+   an fp32 ``torch.matmul`` of the same shapes with TF32 off (the product
+   alone, no carry; a yardstick the port never calls).
+6. Serving phase (the serving path): loads the committed JAX export
    ``src/repro_torch/fixtures/serving_t25_d6`` with ``load_ensemble`` on
    the card and serves it with ``FederatedPredictor``: the 65536-row
    reference batch, whose scores must equal the JAX package's committed
    scores bit for bit, four more 65536-row batches and one 1,048,576-row
    batch.  Kernel launch counts are zeroed just before and read just
    after; every kernel of the path must have launched.
-6. Branches: the two small committed JAX exports under
+7. Branches: the two small committed JAX exports under
    ``fixtures/serving_branches`` (multiclass with two hosts, and
    multi-output leaves) served on the card, scores bit-identical to the
    JAX package's, so every branch of the score accumulation is held.
-7. Training phase (the training path): ``VerticalBoosting`` with the
+8. Training phase (the training path): ``VerticalBoosting`` with the
    plain cipher trains the scale shape of ``benchmarks/bench_tree_build.py``
    (65,536 rows, 2 guest and 14 host features, 3 trees of depth 4, 32
    bins) on the card and scores the training rows; launch counts are
@@ -49,20 +59,29 @@ Phases, each fatal on failure (nothing is caught and carried on):
    through a fresh ``FederatedPredictor`` against the same scores.  Then
    seconds per tree (the first apart, as warm-up), the device's idle
    share (device busy time under ``torch.profiler`` over the untraced wall
-   time of the same boosting rounds, run just before), ``carry_fix``
-   iterations, and device time by stage (bins, K1, the layer reduce, the
-   cumsum, compress, decrypt and decode).
-8. Two hosts: the small two-host case of ``tests/test_gbdt.py`` trained
+   time of the same boosting rounds, run just before; this phase profiles
+   the first round only, phase 10 all of its rounds), ``carry_fix``
+   and ``borrow_fix`` iterations (one sync each), and device time by stage
+   (bins, K1, the layer reduce, the cumsum, compress, decrypt and decode;
+   each run of the port's own kernels in the profile is added to the
+   stages its launch was made in).
+9. Two hosts: the small two-host case of ``tests/test_gbdt.py`` trained
    on the card, equal to its committed reference
    (``fixtures/train_two_hosts_plain``).
-9. Serving throughput, latency and profile (after the counted runs):
+10. Affine training: phase 8 again with ``cipher="affine"`` (1024-bit
+    key, ``fixtures/train_scale_affine``), where all three kernels must
+    have launched, with the modmul stages beside the others
+    (encrypt-modmul, Barrett-in-reduce, decrypt-modmul); then phase 9 with
+    the affine two-host case (``fixtures/train_two_hosts_affine``:
+    ``key_bits=256``, ``precision=20``).
+11. Serving throughput, latency and profile (after the counted runs):
    windows of back-to-back batches (100 of 65536 rows, 8 of 1,048,576),
    rows/s as all rows over the window's time, p50/p90 per batch; then a
    window of batches of each size untraced and again under
    ``torch.profiler``, for device time by kernel and the device's idle
    share of the untraced wall time.
-10. Prints the kernels' JSON line, the card line, and last the device
-    line.
+12. Prints the seconds each phase took, the kernels' JSON line, the card
+    line, and last the device line.
 
 With ``--json PATH`` every number, the build log and the per-kernel
 profiles are also written to PATH.
@@ -78,6 +97,7 @@ import os
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -87,11 +107,15 @@ FIXTURE = os.path.join(FIXTURES, "serving_t25_d6")
 BRANCHES = ("serving_branches/multiclass_2hosts", "serving_branches/mo")
 TRAIN_SCALE = "train_scale_plain"
 TRAIN_TWO_HOSTS = "train_two_hosts_plain"
+TRAIN_SCALE_AFFINE = "train_scale_affine"
+TRAIN_TWO_HOSTS_AFFINE = "train_two_hosts_affine"
 
 # H100 SXM published peaks: HBM3 bandwidth, and fp32 outside the tensor
 # cores (the rate a compare or a 32-bit add runs at)
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+# and the tensor cores' dense bf16 rate
+BF16_TC_OPS_PER_S = 989e12
 
 N_BIG = 1048576
 
@@ -426,6 +450,132 @@ def layer_hist_phase(torch, dev) -> list:
     return rows
 
 
+def mul_fixed_bound(N: int, T) -> tuple:
+    """Least time for the fixed-constant multiply on these inputs: x read
+    once, T read once, the product written once; or one multiply-add
+    (two operations) per row and non-zero entry of T at the tensor cores'
+    bf16 rate (limbs below 2**8 are exact in bf16 and their products'
+    sums in fp32 below 2**24) -- whichever is longer."""
+    Lx, Lo = T.shape
+    t_bytes = 4 * (N * Lx + Lx * Lo + N * Lo) / HBM_BYTES_PER_S
+    t_ops = 2 * N * int((T != 0).sum()) / BF16_TC_OPS_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def k2_tables(torch, dev) -> dict:
+    """The Toeplitz tables of the affine path at 1024- and 512-bit keys
+    (the scale fixture's key and ``benchmarks/bench_tree_build.py``'s
+    affine one), and an all-255 constant, on the card."""
+    from repro_torch.core.he import get_cipher, limbs
+    out = {}
+    for bits in (1024, 512):
+        c = get_cipher("affine", key_bits=bits, seed=1)
+        out[f"encrypt {bits}"] = c.T_enc.on(dev)
+        out[f"Barrett mu {bits}"] = c.bctx.T_mu.on(dev)
+        out[f"Barrett n {bits}"] = c.bctx.T_n.on(dev)
+        out[f"decrypt {bits}"] = c.T_dec.on(dev)
+    ones = np.full(129, 255, np.int32)
+    out["all-255 b"] = torch.as_tensor(limbs.toeplitz(ones, 130), device=dev)
+    return out
+
+
+def k2_rows(torch, dev, n: int, Lx: int, seed: int, fill=None):
+    """n rows of canonical limbs on the card: random from ``seed``, or all
+    ``fill``."""
+    if fill is not None:
+        return torch.full((n, Lx), fill, dtype=torch.int32, device=dev)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return torch.randint(0, 256, (n, Lx), generator=g, device=dev,
+                         dtype=torch.int32)
+
+
+def mul_fixed_phase(torch, dev) -> list:
+    """K2 against its plain version, ``torch.equal``, at the affine path's
+    shapes (encrypt, Barrett and decrypt at 1024- and 512-bit keys, 65,536
+    rows) and on edge inputs; timed at the path's shapes beside its bound,
+    its plain version and an fp32 ``torch.matmul`` of the same shapes
+    (TF32 off: the product alone, with no carry; a yardstick the port
+    never calls).  Then ``modmul_fixed`` on the card against python
+    ints."""
+    from repro_torch.core.he import get_cipher, limbs
+    from repro_torch.kernels.modmul import modmul_fixed, mul_fixed_ref
+    from repro_torch.kernels.modmul.modmul import mul_fixed_cuda
+    tables = k2_tables(torch, dev)
+    n = 65536
+    rows = []
+    for name, T in tables.items():
+        if name == "all-255 b":
+            continue
+        x = k2_rows(torch, dev, n, T.shape[0], seed=T.shape[1])
+        out = mul_fixed_cuda(x, T)
+        ref = mul_fixed_ref(x, T)
+        torch.cuda.synchronize()
+        if not torch.equal(out, ref):
+            fail(f"mul_fixed kernel != plain at {name} {n}x{T.shape[0]}x"
+                 f"{T.shape[1]}: {int((out != ref).sum())} limbs differ")
+        err = int((out.long() - ref.long()).abs().max())
+        xf, Tf = x.float(), T.float()
+        ms = time_ms(torch, lambda: mul_fixed_cuda(x, T))
+        plain_ms = time_ms(torch, lambda: mul_fixed_ref(x, T), reps=5)
+        lib_ms = time_ms(torch, lambda: torch.matmul(xf, Tf))
+        bound_ms, bound_by = mul_fixed_bound(n, T)
+        rows.append(dict(case=name, shape=[n, T.shape[0], T.shape[1]],
+                         max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                         library_ms=lib_ms, bound_ms=bound_ms,
+                         bound_by=bound_by))
+        print(f"kernel mul_fixed {name} {n}x{T.shape[0]}x{T.shape[1]}: "
+              f"equal, ms={ms:.5f} plain_ms={plain_ms:.5f} "
+              f"library_ms={lib_ms:.5f} bound_ms={bound_ms:.5f} "
+              f"({bound_by})", flush=True)
+    T_enc, T_mu = tables["encrypt 1024"], tables["Barrett mu 1024"]
+    T_255 = tables["all-255 b"]
+    edges = [
+        ("all-255 x and b", k2_rows(torch, dev, n, 130, 0, fill=255), T_255),
+        ("all-255 x, Barrett mu", k2_rows(torch, dev, n, 130, 0, fill=255),
+         T_mu),
+        ("zeros", k2_rows(torch, dev, n, 128, 0, fill=0), T_enc),
+        ("N = 1", k2_rows(torch, dev, 1, 128, 1), T_enc),
+        ("N = 65,537", k2_rows(torch, dev, n + 1, 130, 2), T_mu),
+        ("Lo < Lx + Lb (the wrap)", k2_rows(torch, dev, 4099, 130, 3),
+         T_255[:, :200].contiguous()),
+        ("all-255, the wrap", k2_rows(torch, dev, 4099, 130, 0, fill=255),
+         T_255[:, :131].contiguous()),
+    ]
+    for name, x, T in edges:
+        out = mul_fixed_cuda(x, T)
+        ref = mul_fixed_ref(x, T)
+        torch.cuda.synchronize()
+        if not torch.equal(out, ref):
+            fail(f"mul_fixed kernel != plain on edge input '{name}'")
+        print(f"kernel mul_fixed edge '{name}' ({x.shape[0]}x{T.shape[0]}x"
+              f"{T.shape[1]}): equal", flush=True)
+    try:
+        wide = torch.zeros((8, 2000), dtype=torch.int32, device=dev)
+        mul_fixed_cuda(wide, torch.zeros((2000, 2000), dtype=torch.int32,
+                                         device=dev))
+    except RuntimeError:
+        print("kernel mul_fixed refuses Lx = Lo = 2000 (past its shared "
+              "memory)", flush=True)
+    else:
+        fail("mul_fixed took a row tile past its shared memory")
+    # modmul_fixed on the card: (v * b) mod n against python ints
+    c = get_cipher("affine", key_bits=1024, seed=1)
+    rng = np.random.default_rng(7)
+    vals = [int.from_bytes(rng.bytes(128), "little") % c.n_int
+            for _ in range(300)] + [0, 1, c.n_int - 1]
+    b_int = int.from_bytes(rng.bytes(128), "little") % c.n_int
+    T_b = torch.as_tensor(limbs.toeplitz(limbs.from_pyints([b_int], c.Ln)[0],
+                                         c.Ln), device=dev)
+    got = modmul_fixed(torch.as_tensor(limbs.from_pyints(vals, c.Ln),
+                                       device=dev), T_b, c.bctx)
+    if limbs.to_pyints(got) != [(v * b_int) % c.n_int for v in vals]:
+        fail("modmul_fixed on the card != (v * b) % n")
+    print(f"modmul_fixed on the card: {len(vals)} rows equal to python "
+          f"ints' (v * b) % n at 1024 bits", flush=True)
+    return rows
+
+
 # --------------------------------------------------------------------------
 # training
 # --------------------------------------------------------------------------
@@ -512,15 +662,37 @@ def train_and_compare(name: str, device) -> tuple:
             fit_s)
 
 
+# the port's own kernels, launched through ctypes with no PyTorch op
+# around them, which the profiler does not attribute to the enclosing
+# range: (wrapper module, launching function, kernel name)
+OWN_LAUNCHERS = (("repro_torch.kernels.binning.ops", "bucketize_cuda",
+                  "bucketize_kernel"),
+                 ("repro_torch.kernels.histogram.ops", "layer_hist_cuda",
+                  "layer_hist_kernel"),
+                 ("repro_torch.kernels.modmul.ops", "mul_fixed_cuda",
+                  "mul_fixed_kernel"))
+
+
 @contextlib.contextmanager
-def stage_ranges(torch):
+def stage_ranges(torch, affine: bool = False):
     """Wrap the training path's stages in ``torch.profiler`` ranges (only
-    while profiling here; the port itself carries none).  Yields the stage
-    names: a caller that reached a stage by a name bound before the patch
-    would bypass its range, so the caller fails on any stage the profile
-    saw no call of."""
+    while profiling here; the port itself carries none), the affine
+    cipher's modmul stages too when ``affine``, and note the stages each
+    launch of the port's own kernels was made in.  Yields a namespace:
+    ``names``, the stage names (a caller that reached a stage by a name
+    bound before the patch would bypass its range, so the caller fails on
+    any stage the profile saw no call of), and ``own_ms(prof)``, the own
+    kernels' device ms by stage in the profile ``prof``: the kernels the
+    profile saw, in the order they ran, are the launches noted since the
+    last call, in the order they were made (one stream runs them in
+    order), and a count that differs fails the run."""
+    import importlib
+    import types
+
     import repro_torch.core.boosting as boosting
     import repro_torch.core.tree as tree
+    import repro_torch.kernels.modmul as modmul
+    from repro_torch.core.he.affine import AffineCipher
     from repro_torch.core.histogram import CipherHistogram
     targets = [(boosting, "bin_features", "sbt:bins"),
                (tree, "_encrypt_all", "sbt:encrypt"),
@@ -531,21 +703,61 @@ def stage_ranges(torch):
                (tree.compress_mod, "compress_batch", "sbt:compress"),
                (tree, "_host_layer_finish", "sbt:decrypt + decode"),
                (tree, "_guest_layer_candidates", "sbt:guest histograms")]
-    saved = []
+    if affine:
+        targets += [(modmul, "encrypt_batch", "sbt:encrypt-modmul"),
+                    (AffineCipher, "reduce",
+                     "sbt:Barrett-in-reduce (carry_fix + Barrett)"),
+                    (modmul, "decrypt_batch", "sbt:decrypt-modmul")]
+    stack, launched, saved = [], [], []
 
-    def wrap(fn, label):
+    def ranged(fn, label):
         @functools.wraps(fn)
         def inner(*a, **k):
-            with torch.profiler.record_function(label):
-                return fn(*a, **k)
+            stack.append(label[4:])
+            try:
+                with torch.profiler.record_function(label):
+                    return fn(*a, **k)
+            finally:
+                stack.pop()
         return inner
+
+    def noted(fn, kernel):
+        @functools.wraps(fn)
+        def inner(*a, **k):
+            out = fn(*a, **k)
+            launched.append((kernel, tuple(stack)))
+            return out
+        return inner
+
+    def own_ms(prof) -> dict:
+        out = {}
+        for _, _, kernel in OWN_LAUNCHERS:
+            mine = [st for k, st in launched if k == kernel]
+            seen = sorted((e for e in prof.events() if kernel in e.name
+                           and "CUDA" in str(e.device_type)),
+                          key=lambda e: e.time_range.start)
+            if len(seen) != len(mine):
+                fail(f"the profile saw {len(seen)} {kernel} runs, the "
+                     f"wrapper made {len(mine)} launches")
+            for stages, e in zip(mine, seen):
+                for st in stages:
+                    out[st] = out.get(st, 0.0) + e.time_range.elapsed_us() \
+                        / 1e3
+        launched.clear()
+        return out
 
     for obj, attr, label in targets:
         fn = getattr(obj, attr)
         saved.append((obj, attr, fn))
-        setattr(obj, attr, wrap(fn, label))
+        setattr(obj, attr, ranged(fn, label))
+    for mod, attr, kernel in OWN_LAUNCHERS:
+        obj = importlib.import_module(mod)
+        fn = getattr(obj, attr)
+        saved.append((obj, attr, fn))
+        setattr(obj, attr, noted(fn, kernel))
     try:
-        yield [label[4:] for _, _, label in targets]
+        yield types.SimpleNamespace(
+            names=[label[4:] for _, _, label in targets], own_ms=own_ms)
     finally:
         for obj, attr, fn in saved:
             setattr(obj, attr, fn)
@@ -567,21 +779,13 @@ def device_work(prof) -> list:
     return rows
 
 
-# the port's own kernels, launched through ctypes with no PyTorch op
-# around them, which the profiler does not attribute to the enclosing
-# range: their time is added to the stages that launch them
-OWN_KERNELS = {"layer_hist_kernel": ("K1 layer_hist",
-                                     "layer_histograms (K1 + lazy_sub + "
-                                     "reduce)"),
-               "bucketize_kernel": ("bins",)}
-
-
-def stage_times(prof, stages=None) -> dict:
+def stage_times(prof, own_ms: dict) -> dict:
     """Host and device ms of each ``sbt:`` range in the profile: the host
     time of the range, and the device time of the work launched inside it
     (the range's host event with its children, not the span of its mirror
-    on the device timeline), plus the port's own kernels."""
-    stages = {} if stages is None else stages
+    on the device timeline), plus the port's own kernels launched in it
+    (``own_ms``, by stage)."""
+    stages = {}
     for e in prof.events():
         if e.name.startswith("sbt:") and "CPU" in str(e.device_type):
             st = stages.setdefault(e.name[4:], dict(calls=0, device_ms=0.0,
@@ -589,40 +793,47 @@ def stage_times(prof, stages=None) -> dict:
             st["calls"] += 1
             st["device_ms"] += getattr(e, "device_time_total", 0) / 1e3
             st["cpu_ms"] += e.cpu_time_total / 1e3
-    for r in device_work(prof):
-        for kname, owners in OWN_KERNELS.items():
-            if kname in r["name"]:
-                for owner in owners:
-                    if owner in stages:
-                        stages[owner]["device_ms"] += r["device_ms"]
+    for name, ms in own_ms.items():
+        if name in stages:
+            stages[name]["device_ms"] += ms
     return stages
 
 
-def training_phase(torch, dev) -> dict:
-    """The training path on the card, counted, then timed and profiled."""
+def training_phase(torch, dev, name: str, rounds: int | None = None) -> dict:
+    """The training path on the card for the committed reference ``name``
+    (plain or affine cipher), counted, then timed and profiled over its
+    first ``rounds`` boosting rounds (all of them when None)."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.core import SBTParams, VerticalBoosting
     from repro_torch.core.he import limbs
     from repro_torch.kernels.binning import bucketize
     from repro_torch.kernels.histogram import layer_ciphertext_histogram
+    from repro_torch.kernels.modmul import mul_fixed
     from repro_torch.serving import FederatedPredictor, PackedEnsemble
 
-    ref, ref_scores = training_reference(TRAIN_SCALE)
+    ref, ref_scores = training_reference(name)
     Xg, Xh, y = training_data(ref)
+    affine = ref["params"]["cipher"] == "affine"
+    counters = {"bucketize": bucketize,
+                "layer_hist": layer_ciphertext_histogram}
+    if affine:
+        counters["mul_fixed"] = mul_fixed
 
     # the counted run: fit and score, launch counts zeroed just before
-    bucketize.launches = 0
-    layer_ciphertext_histogram.launches = 0
-    iters0 = limbs.carry_fix.iterations
-    model, bad, fit_s = train_and_compare(TRAIN_SCALE, dev)
-    launches = {"bucketize": bucketize.launches,
-                "layer_hist": layer_ciphertext_histogram.launches}
-    carry_iters = limbs.carry_fix.iterations - iters0
+    for c in counters.values():
+        c.launches = 0
+    carry0 = limbs.carry_fix.iterations
+    borrow0 = limbs.borrow_fix.iterations
+    model, bad, fit_s = train_and_compare(name, dev)
+    launches = {k: c.launches for k, c in counters.items()}
+    carry_iters = limbs.carry_fix.iterations - carry0
+    borrow_iters = limbs.borrow_fix.iterations - borrow0
     if bad:
-        fail("training differs from the JAX reference: " + "; ".join(bad))
-    for name, count in launches.items():
+        fail(f"{name} differs from the JAX reference: " + "; ".join(bad))
+    for kname, count in launches.items():
         if count <= 0:
-            fail(f"the training path never launched the {name} kernel")
+            fail(f"the {name} training path never launched the {kname} "
+                 f"kernel")
     if launches["layer_hist"] != model.stats.n_hist_launches:
         fail(f"{launches['layer_hist']} layer_hist launches, Stats counts "
              f"{model.stats.n_hist_launches}")
@@ -633,75 +844,80 @@ def training_phase(torch, dev) -> dict:
     served = FederatedPredictor(ens.guest, ens.hosts,
                                 device=dev).predict_score(Xg, Xh)
     if not np.array_equal(served, ref_scores):
-        fail("the trained model served through FederatedPredictor differs "
-             "from the reference scores")
-    print(f"training {TRAIN_SCALE}: trees, scores ({len(ref_scores)} rows), "
+        fail(f"the {name} model served through FederatedPredictor differs "
+             f"from the reference scores")
+    print(f"training {name}: trees, scores ({len(ref_scores)} rows), "
           f"ledgers and Stats counters equal to the JAX reference; served "
           f"again through FederatedPredictor, equal; fit {fit_s:.3f} s; "
           f"seconds per tree " + ", ".join(f"{t:.3f}" for t in tree_s)
           + f" (the first is warm-up); launches {launches}; carry_fix "
-          f"iterations {carry_iters}", flush=True)
+          f"iterations {carry_iters}, borrow_fix iterations {borrow_iters}",
+          flush=True)
 
     # untraced wall of the boosting rounds, then the same rounds traced
     params = SBTParams(device=dev, **ref["params"])
+    n_rounds = params.n_trees if rounds is None else rounds
     m2 = VerticalBoosting(params)
     score = m2.begin_fit(Xg, y, Xh)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    for t in range(params.n_trees):
+    for t in range(n_rounds):
         score = m2.boost_round(t, score)
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
 
     m3 = VerticalBoosting(params)
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
-    with stage_ranges(torch) as stage_names:
+    with stage_ranges(torch, affine) as ranges:
         with profile(activities=acts) as prof_bins:
             score = m3.begin_fit(Xg, y, Xh)
             torch.cuda.synchronize()
+        own_bins = ranges.own_ms(prof_bins)
         with profile(activities=acts) as prof:
             t0 = time.perf_counter()
-            for t in range(params.n_trees):
+            for t in range(n_rounds):
                 score = m3.boost_round(t, score)
             torch.cuda.synchronize()
             traced_ms = (time.perf_counter() - t0) * 1e3
-    if [signature_json(t) for t in m3.trees] != ref["signatures"]:
-        fail("the traced training run grew other trees")
+        own_rounds = ranges.own_ms(prof)
+    if [signature_json(t) for t in m3.trees] != ref["signatures"][:n_rounds]:
+        fail(f"the traced {name} run grew other trees")
     kernels = device_work(prof)
     busy = sum(r["device_ms"] for r in kernels)
     if busy <= 0:
         fail("the profiler saw no device time in the boosting rounds")
-    stages = stage_times(prof)
-    binning = stage_times(prof_bins).get("bins")
-    quiet = [k for k in stage_names
+    stages = stage_times(prof, own_rounds)
+    binning = stage_times(prof_bins, own_bins).get("bins")
+    quiet = [k for k in ranges.names
              if not (binning if k == "bins" else stages.get(k))]
     if quiet:
         fail(f"the profile saw no call of the stages {quiet}: their ranges "
              f"were bypassed")
-    n_trees = params.n_trees
     res = dict(
-        fixture=TRAIN_SCALE, params=ref["params"], data=ref["data"],
+        fixture=name, params=ref["params"], data=ref["data"],
         equal_to_jax=True, fit_s=fit_s, tree_seconds=tree_s,
         warmup_tree_s=tree_s[0],
         steady_tree_s=float(np.mean(tree_s[1:])) if len(tree_s) > 1 else None,
         launches=launches, carry_fix_iterations=carry_iters,
+        borrow_fix_iterations=borrow_iters,
         n_hist_launches=model.stats.n_hist_launches,
         n_split_roundtrips=model.stats.n_split_roundtrips,
-        rounds_wall_ms=wall_ms, rounds_traced_ms=traced_ms,
+        profiled_rounds=n_rounds, rounds_wall_ms=wall_ms,
+        rounds_traced_ms=traced_ms,
         rounds_device_busy_ms=busy, idle_share=1.0 - busy / wall_ms,
         rounds_device_launches=sum(r["calls"] for r in kernels),
         traced_idle_share=1.0 - busy / traced_ms,
-        per_tree_stage_device_ms={k: v["device_ms"] / n_trees
+        per_tree_stage_device_ms={k: v["device_ms"] / n_rounds
                                   for k, v in stages.items()},
-        per_tree_stage_host_ms={k: v["cpu_ms"] / n_trees
+        per_tree_stage_host_ms={k: v["cpu_ms"] / n_rounds
                                 for k, v in stages.items()},
         stages=stages, binning=binning, kernels=kernels[:25])
-    print(f"training profile: {n_trees} rounds in {wall_ms:.3f} ms untraced "
-          f"({traced_ms:.3f} traced), device busy {busy:.3f} ms, idle share "
-          f"{res['idle_share']:.3f}; per tree by stage, device ms / host "
-          f"ms: " + "; ".join(f"{k}={v['device_ms'] / n_trees:.3f}/"
-                              f"{v['cpu_ms'] / n_trees:.3f}"
-                              for k, v in sorted(stages.items()))
+    print(f"training profile {name}: {n_rounds} rounds in {wall_ms:.3f} ms "
+          f"untraced ({traced_ms:.3f} traced), device busy {busy:.3f} ms, "
+          f"idle share {res['idle_share']:.3f}; per tree by stage, device "
+          f"ms / host ms: " + "; ".join(f"{k}={v['device_ms'] / n_rounds:.3f}/"
+                                        f"{v['cpu_ms'] / n_rounds:.3f}"
+                                        for k, v in sorted(stages.items()))
           + f"; binning (once per fit) device ms / host ms "
           f"{binning['device_ms']:.3f}/{binning['cpu_ms']:.3f}"
           + "; top kernels: " + "; ".join(
@@ -710,16 +926,15 @@ def training_phase(torch, dev) -> dict:
     return res
 
 
-def two_host_phase(dev) -> dict:
-    model, bad, fit_s = train_and_compare(TRAIN_TWO_HOSTS, dev)
+def two_host_phase(dev, name: str) -> dict:
+    model, bad, fit_s = train_and_compare(name, dev)
     if bad:
-        fail(f"{TRAIN_TWO_HOSTS} differs from the JAX reference: "
-             + "; ".join(bad))
-    print(f"training {TRAIN_TWO_HOSTS}: trees, scores, ledgers and Stats "
-          f"counters equal to the JAX reference ({len(model.host_data)} "
-          f"hosts, fit {fit_s:.3f} s)", flush=True)
-    return dict(fixture=TRAIN_TWO_HOSTS, hosts=len(model.host_data),
-                equal_to_jax=True, fit_s=fit_s)
+        fail(f"{name} differs from the JAX reference: " + "; ".join(bad))
+    print(f"training {name}: trees, scores, ledgers and Stats counters "
+          f"equal to the JAX reference ({len(model.host_data)} hosts, fit "
+          f"{fit_s:.3f} s)", flush=True)
+    return dict(fixture=name, hosts=len(model.host_data), equal_to_jax=True,
+                fit_s=fit_s)
 
 
 def serve_window(pred, X, n_g: int, n_rows: int, n_batches: int) -> list:
@@ -819,15 +1034,27 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} on "
           f"{torch.cuda.get_device_name(0)}", flush=True)
 
-    build_logs = {}
-    for name in build.sources():
-        t0 = time.perf_counter()
-        build_logs[name] = build.build(name)
-        print(f"build: {name}.cu in {time.perf_counter() - t0:.2f} s",
-              flush=True)
-        for line in build_logs[name].splitlines():
+    # seconds each phase takes, for the run's time budget
+    clock = [time.perf_counter()]
+    phase_s = {}
+
+    def lap(phase: str):
+        now = time.perf_counter()
+        phase_s[phase] = now - clock[0]
+        clock[0] = now
+
+    # one nvcc per source, all started together
+    names = build.sources()
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(names)) as pool:
+        build_logs = dict(zip(names, pool.map(build.build, names)))
+    print(f"build: {', '.join(n + '.cu' for n in names)} in parallel in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    for name, log in build_logs.items():
+        for line in log.splitlines():
             if "registers" in line or "spill" in line or "smem" in line:
                 print(f"ptxas {name}: {line.strip()}", flush=True)
+    lap("build")
 
     ref = np.load(os.path.join(FIXTURE, "reference.npz"))
     X = serving_batch(ref, N_BIG)
@@ -838,27 +1065,45 @@ def main() -> int:
     thr_h = load_host(os.path.join(FIXTURE, "host0"), dev).thresholds
 
     krows = kernel_phase(torch, dev, thr_g, thr_h, X)
+    lap("bucketize")
     hrows = layer_hist_phase(torch, dev)
+    lap("layer_hist")
+    mrows = mul_fixed_phase(torch, dev)
+    lap("mul_fixed")
     pred, serving = serving_phase(torch, dev, ref, X)
     branches = branch_phase(torch, dev)
-    training = training_phase(torch, dev)
-    two_hosts = two_host_phase(dev)
+    lap("serving")
+    # the plain scale run profiles one round: its reference check covers
+    # the whole fit, and the affine phase profiles all of its rounds
+    training = training_phase(torch, dev, TRAIN_SCALE, rounds=1)
+    two_hosts = two_host_phase(dev, TRAIN_TWO_HOSTS)
+    lap("training_plain")
+    training_affine = training_phase(torch, dev, TRAIN_SCALE_AFFINE)
+    two_hosts_affine = two_host_phase(dev, TRAIN_TWO_HOSTS_AFFINE)
+    lap("training_affine")
     n_g = int(ref["n_guest"])
     latency = [latency_phase(pred, X, n_g, int(ref["n"]), 100),
                latency_phase(pred, X, n_g, N_BIG, 8)]
     prof = [profile_phase(torch, pred, X, n_g, int(ref["n"]), 10),
             profile_phase(torch, pred, X, n_g, N_BIG, 2)]
+    lap("serving_latency_profile")
+    print("phase seconds: " + ", ".join(f"{k} {v:.3f}"
+                                        for k, v in phase_s.items()),
+          flush=True)
 
     main_row = next(r for r in krows
                     if r["party"] == "host" and r["shape"][0] == N_BIG)
     k1_row = hrows[0]                       # layer 0: 65536 rows, 1 node
+    k2_row = mrows[0]                       # encryption, 1024-bit key
     kernels = {"kernels": [
         dict(name="bucketize", route="cuda",
              source="src/repro_torch/csrc/bucketize.cu",
              replaces="src/repro/kernels/binning/binning.py:42",
              launches=serving["launches"]["bucketize"],
-             launches_by_path={"serving": serving["launches"]["bucketize"],
-                               "training": training["launches"]["bucketize"]},
+             launches_by_path={
+                 "serving": serving["launches"]["bucketize"],
+                 "training": training["launches"]["bucketize"],
+                 "training_affine": training_affine["launches"]["bucketize"]},
              max_abs_err=max(r["max_abs_err"] for r in krows),
              ms=main_row["ms"], plain_ms=main_row["plain_ms"],
              bound_ms=main_row["bound_ms"], bound_by=main_row["bound_by"],
@@ -868,11 +1113,24 @@ def main() -> int:
              source="src/repro_torch/csrc/layer_hist.cu",
              replaces="src/repro/kernels/histogram/histogram.py:142",
              launches=training["launches"]["layer_hist"],
+             launches_by_path={
+                 "training": training["launches"]["layer_hist"],
+                 "training_affine":
+                     training_affine["launches"]["layer_hist"]},
              max_abs_err=max(r["max_abs_err"] for r in hrows),
              ms=k1_row["ms"], plain_ms=k1_row["plain_ms"],
              bound_ms=k1_row["bound_ms"], bound_by=k1_row["bound_by"],
              library_ms=k1_row["library_ms"], shape=k1_row["shape"],
-             n_nodes=k1_row["n_nodes"], matches_plain=True)]}
+             n_nodes=k1_row["n_nodes"], matches_plain=True),
+        dict(name="mul_fixed", route="cuda",
+             source="src/repro_torch/csrc/mul_fixed.cu",
+             replaces="src/repro/kernels/modmul/modmul.py:67",
+             launches=training_affine["launches"]["mul_fixed"],
+             max_abs_err=max(r["max_abs_err"] for r in mrows),
+             ms=k2_row["ms"], plain_ms=k2_row["plain_ms"],
+             bound_ms=k2_row["bound_ms"], bound_by=k2_row["bound_by"],
+             library_ms=k2_row["library_ms"], shape=k2_row["shape"],
+             case=k2_row["case"], matches_plain=True)]}
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
               "count": torch.cuda.device_count()}
     if args.json:
@@ -882,9 +1140,13 @@ def main() -> int:
             json.dump(dict(card=card, torch=torch.__version__,
                            cuda=torch.version.cuda, build_logs=build_logs,
                            kernel_rows=krows, layer_hist_rows=hrows,
-                           serving=serving, branches=branches,
-                           training=training, two_hosts=two_hosts,
+                           mul_fixed_rows=mrows, serving=serving,
+                           branches=branches, training=training,
+                           two_hosts=two_hosts,
+                           training_affine=training_affine,
+                           two_hosts_affine=two_hosts_affine,
                            latency=latency, profile=prof,
+                           phase_seconds=phase_s,
                            **kernels, device=device), f, indent=1)
     print(json.dumps(kernels))
     print(card)

@@ -5,7 +5,8 @@ orchestrates the guest and in-process hosts over a byte-counted channel,
 with the host's ciphertext work on ``SBTParams.device`` (default
 ``"cuda"``: a card is required unless the caller asks for ``"cpu"``).  The
 port runs the binary objective, the default tree mode and the ``plain``
-cipher, with packing, histogram subtraction and compression on (or off);
+and ``affine`` ciphers, with packing, histogram subtraction and
+compression on (or off);
 each option it does not run yet raises ``NotImplementedError`` naming the
 ROADMAP item that ports it, never quietly taking another path.
 
@@ -45,7 +46,7 @@ class SBTParams:
     min_gain: float = 1e-6
     objective: str = "binary"          # binary (multiclass | mo: M9)
     n_classes: int = 2
-    cipher: str = "plain"              # plain (affine: slice 3; paillier: M2)
+    cipher: str = "plain"              # plain | affine (paillier: M2)
     key_bits: int = 1024
     precision: int = encoding.DEFAULT_PRECISION
     goss: bool = False                 # M9
@@ -70,8 +71,8 @@ class SBTParams:
 _UNPORTED = (
     ("objective", lambda v: v == "binary",
      "Queue 1 M9 (multiclass and mo objectives)"),
-    ("cipher", lambda v: v == "plain",
-     "Queue 1 slice 3 (affine cipher) / M2 (Paillier oracle)"),
+    ("cipher", lambda v: v in ("plain", "affine"),
+     "Queue 1 M2 (Paillier oracle)"),
     ("tree_mode", lambda v: v == "default",
      "Queue 1 M9 (mix and layered tree modes)"),
     ("goss", lambda v: not v, "Queue 1 M9 (GOSS)"),

@@ -26,8 +26,8 @@ message is a payload handled by ``deliver(tag, payload)``, and each reply
 is emitted through ``channel.send`` and picked up with ``collect(tag)``.
 
 Not ported yet: round-forests (``grow_forest``), the pipelined encrypt
-pump, the chunked out-of-core encrypt, the Paillier object path and the
-process-per-party transport.
+pump, the chunked out-of-core encrypt, the Paillier object path, the mesh
+and the process-per-party transport.
 """
 
 from __future__ import annotations
@@ -385,10 +385,11 @@ def _encrypt_all(ctx: TreeContext, g_sel: np.ndarray,
     """Guest packs + encrypts g/h of selected rows, broadcasts to hosts.
 
     The packed plaintext limbs go to the device once; the ciphertexts are
-    born there at histogram width, and each host's :class:`CipherFrontier`
-    adopts the tensor as it is.  The wire-byte ledger keeps
-    protocol-fidelity counts via ``ct_wire_bytes`` regardless of the
-    in-memory limb layout."""
+    born there at histogram width (the affine cipher's ``encrypt_limbs``
+    is ``kernels.modmul.encrypt_batch``: three K2 products), and each
+    host's :class:`CipherFrontier` adopts the tensor as it is.  The
+    wire-byte ledger keeps protocol-fidelity counts via ``ct_wire_bytes``
+    regardless of the in-memory limb layout."""
     t0 = time.perf_counter()
     plain = ctx.codec.encode_plain(g_sel, h_sel)
     n, s, _ = plain.shape
@@ -469,6 +470,9 @@ def _host_layer_finish(ctx: TreeContext, hid: int,
 
 
 def _decrypt_ints(ctx: TreeContext, cts) -> list:
+    """The guest's batched decrypt of a candidate stack still on the
+    device, then python ints on the host (the affine cipher decrypts
+    through ``kernels.modmul.decrypt_batch``: three K2 products)."""
     return ctx.cipher.decrypt_to_ints(cts)
 
 

@@ -24,13 +24,20 @@ Fixtures:
 * ``train_two_hosts_plain``: the shape of ``tests/test_gbdt.py``'s
   two-host case: ``synthetic_tabular(400, 6, seed=0)``, columns 0-1 on the
   guest, 2-3 and 4-5 on two hosts, 3 trees of ``max_depth=3``,
-  ``n_bins=16``.
+  ``n_bins=16``;
+* ``train_scale_affine``: ``train_scale_plain``'s run with
+  ``cipher="affine"`` (key_bits 1024, the default precision);
+* ``train_two_hosts_affine``: ``train_two_hosts_plain``'s rows and
+  parties, 3 trees of ``max_depth=3``, ``n_bins=16``, ``cipher="affine"``
+  with ``key_bits=256`` and ``precision=20`` (the affine case of
+  ``tests/test_gbdt.py``).
 
 Run from the repo root (not collected by pytest), naming the fixtures to
 write (default: all):
 
     PYTHONPATH=src python tests/make_torch_training_fixture.py \\
-        [train_scale_plain] [train_two_hosts_plain]
+        [train_scale_plain] [train_two_hosts_plain] \\
+        [train_scale_affine] [train_two_hosts_affine]
 """
 
 from __future__ import annotations
@@ -54,6 +61,13 @@ FIXTURE_RUNS = {
     "train_two_hosts_plain": (
         dict(n=400, d=6, seed=0, bounds=[0, 2, 4, 6]),
         dict(n_trees=3, max_depth=3, n_bins=16, cipher="plain")),
+    "train_scale_affine": (
+        dict(n=65536, d=16, seed=0, bounds=[0, 2, 16]),
+        dict(n_trees=3, max_depth=4, n_bins=32, seed=1, cipher="affine")),
+    "train_two_hosts_affine": (
+        dict(n=400, d=6, seed=0, bounds=[0, 2, 4, 6]),
+        dict(n_trees=3, max_depth=3, n_bins=16, cipher="affine",
+             key_bits=256, precision=20)),
 }
 
 

@@ -1,8 +1,10 @@
-"""The port's plain-cipher training against the JAX package, on the CPU.
+"""The port's training against the JAX package, on the CPU.
 
-``repro_torch.core.VerticalBoosting`` (plain cipher, ``device="cpu"``) and
-``repro.core.VerticalBoosting`` fit the same rows, made with numpy from a
-seed, on the shapes of ``tests/test_gbdt.py``.  Equal means equal: the
+``repro_torch.core.VerticalBoosting`` (plain and affine ciphers,
+``device="cpu"``) and ``repro.core.VerticalBoosting`` fit the same rows,
+made with numpy from a seed, on the shapes of ``tests/test_gbdt.py``
+(the affine ones with ``key_bits=256``, ``precision=20``).  Equal means
+equal: the
 same trees (``FederatedTree.signature()``, leaf weights to the bit), the
 same ``predict_score``/``predict_proba``, the same ``channel.summary()``
 after the fit and after scoring, and the same integer ``Stats`` counters.
@@ -73,20 +75,29 @@ def _assert_same_fit(tm, jm, Xg, Xh):
     assert tm.stats.n_predict_roundtrips == jm.stats.n_predict_roundtrips
 
 
+AFFINE = dict(cipher="affine", key_bits=256, precision=20)
+
 # the shapes of tests/test_gbdt.py: (guest columns, host column blocks,
-# SBTParams) -- :23 one host, :54 two hosts, and the legacy ablation
+# SBTParams, rows) -- :23 one host, :54 two hosts, the legacy ablation,
+# and :33 the affine cipher (one host and two)
 SHAPES = {
     "one_host": ((0, 3), [(3, 6)],
-                 dict(n_trees=4, max_depth=3, n_bins=16)),
+                 dict(n_trees=4, max_depth=3, n_bins=16), 400),
     "two_hosts": ((0, 2), [(2, 4), (4, 6)],
-                  dict(n_trees=3, max_depth=3, n_bins=16)),
+                  dict(n_trees=3, max_depth=3, n_bins=16), 400),
     "legacy_ablation": ((0, 3), [(3, 6)],
                         dict(n_trees=2, max_depth=3, n_bins=16,
                              packing=False, histogram_subtraction=False,
-                             compression=False)),
+                             compression=False), 400),
     "deep_min_leaf": ((0, 2), [(2, 6)],
                       dict(n_trees=2, max_depth=5, n_bins=32, min_leaf=20,
-                           learning_rate=0.1, seed=3, key_bits=512)),
+                           learning_rate=0.1, seed=3, key_bits=512), 400),
+    "affine_one_host": ((0, 3), [(3, 6)],
+                        dict(n_trees=3, max_depth=3, n_bins=16, **AFFINE),
+                        300),
+    "affine_two_hosts": ((0, 2), [(2, 4), (4, 6)],
+                         dict(n_trees=3, max_depth=3, n_bins=16, seed=2,
+                              **AFFINE), 400),
 }
 
 
@@ -96,12 +107,12 @@ def _split(X, guest, hosts):
 
 @pytest.fixture(scope="module", params=sorted(SHAPES))
 def fitted(request):
-    guest, hosts, kw = SHAPES[request.param]
-    X, y = _data()
+    guest, hosts, kw, n = SHAPES[request.param]
+    kw = {"cipher": "plain", **kw}
+    X, y = _data(n=n)
     Xg, Xh = _split(X, guest, hosts)
-    jm = JaxBoosting(JaxParams(cipher="plain", **kw)).fit(Xg, y, Xh)
-    tm = VerticalBoosting(SBTParams(cipher="plain", device=CPU, **kw)
-                          ).fit(Xg, y, Xh)
+    jm = JaxBoosting(JaxParams(**kw)).fit(Xg, y, Xh)
+    tm = VerticalBoosting(SBTParams(device=CPU, **kw)).fit(Xg, y, Xh)
     return dict(name=request.param, X=X, y=y, Xg=Xg, Xh=Xh, jm=jm, tm=tm,
                 kw=kw)
 
@@ -109,7 +120,7 @@ def fitted(request):
 def test_port_fit_equals_jax_fit(fitted):
     tm, jm = fitted["tm"], fitted["jm"]
     # the training path ran: one layer launch and one split round-trip per
-    # (tree, layer, host) at most, and the plain cipher's ledger
+    # (tree, layer, host) at most, and one encrypted batch per tree
     n_hosts = len(fitted["Xh"])
     assert 0 < tm.stats.n_hist_launches <= \
         fitted["kw"]["n_trees"] * fitted["kw"]["max_depth"] * n_hosts
@@ -224,7 +235,6 @@ def test_codecs_match_jax():
 
 
 UNPORTED = {
-    "cipher_affine": dict(cipher="affine"),
     "cipher_paillier": dict(cipher="paillier"),
     "objective_multiclass": dict(objective="multiclass", n_classes=3),
     "objective_mo": dict(objective="mo", n_classes=3),
@@ -248,6 +258,28 @@ def test_unported_options_raise(case):
     if case.startswith("cipher"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             get_cipher(UNPORTED[case]["cipher"], key_bits=256, seed=0)
+
+
+def test_affine_trained_model_serves_like_predict_tree():
+    """The ("binary", "affine") case of tests/test_serving.py's export
+    round-trip: the port's affine-trained model, served through a fresh
+    ``FederatedPredictor``, scores as ``predict_tree`` does and as the JAX
+    package's model does."""
+    X, y = _data(n=350, seed=4)
+    kw = dict(n_trees=3, max_depth=3, n_bins=16, **AFFINE)
+    tm = VerticalBoosting(SBTParams(device=CPU, **kw)).fit(X[:, :3], y,
+                                                           [X[:, 3:]])
+    jm = JaxBoosting(JaxParams(**kw)).fit(X[:, :3], y, [X[:, 3:]])
+    ens = PackedEnsemble.from_model(tm, device=CPU)
+    served = FederatedPredictor(ens.guest, ens.hosts,
+                                device=CPU).predict_score(X[:, :3],
+                                                          [X[:, 3:]])
+    np.testing.assert_array_equal(
+        served, tm.predict_score(X[:, :3], [X[:, 3:]], packed=False))
+    np.testing.assert_array_equal(served,
+                                  jm.predict_score(X[:, :3], [X[:, 3:]]))
+    assert [t.signature() for t in tm.trees] == \
+        [t.signature() for t in jm.trees]
 
 
 # tuning knobs of the modes above: the port takes each one only together

@@ -148,3 +148,142 @@ def test_pad_limbs_matches_jax():
         np.testing.assert_array_equal(got, want)
     assert tl.num_limbs_for_bits(1024) == jl.num_limbs_for_bits(1024) == 128
     assert (tl.RADIX_BITS, tl.LIMB_MASK) == (jl.RADIX_BITS, jl.LIMB_MASK)
+
+
+# --------------------------------------------------------------------------
+# compares, Toeplitz products and Barrett reduction (the affine cipher)
+# --------------------------------------------------------------------------
+
+def _compare_cases(rng, L=20):
+    """Pairs that are equal, differ only in the lowest or the highest
+    limb, or are random, with the python ints' answers."""
+    xs = _bigints(rng, 6, 8 * L)
+    ys = list(xs[:2]) + [xs[2] + 1, xs[3] + (1 << (8 * L - 8))] \
+        + _bigints(rng, 2, 8 * L)
+    xs = [x % (1 << (8 * L)) for x in xs]
+    ys = [y % (1 << (8 * L)) for y in ys]
+    return (tl.from_pyints(xs, L), tl.from_pyints(ys, L),
+            [(x > y) - (x < y) for x, y in zip(xs, ys)])
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_compare_geq_is_zero_match_jax(seed):
+    a, b, want = _compare_cases(np.random.default_rng(40 + seed))
+    for fn_t, fn_j in ((tl.compare, jl.compare), (tl.geq, jl.geq)):
+        got, ref = _both(fn_t, fn_j, a, b)
+        np.testing.assert_array_equal(got, ref)
+        got, ref = _both(fn_t, fn_j, b, a)
+        np.testing.assert_array_equal(got, ref)
+    got = tl.compare(torch.from_numpy(a), torch.from_numpy(b))
+    assert got.tolist() == want
+    a[0] = 0
+    got, ref = _both(tl.is_zero, jl.is_zero, a)
+    np.testing.assert_array_equal(got, ref)
+    assert got.tolist() == [True] + [False] * 5
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_cond_sub_matches_jax(seed):
+    rng = np.random.default_rng(50 + seed)
+    n_int = _bigints(rng, 1, 160)[0] | (1 << 159)
+    vals = [x % (2 * n_int) for x in _bigints(rng, 8, 168)]
+    vals += [0, n_int - 1, n_int, 2 * n_int - 1]
+    a = tl.from_pyints(vals, 22)
+    n = tl.from_pyints([n_int], 22)[0]
+    got = tl.cond_sub(torch.from_numpy(a), torch.from_numpy(n))
+    want = jl.cond_sub(jnp.asarray(a), jnp.asarray(n))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert tl.to_pyints(got) == [v % n_int for v in vals]
+
+
+@pytest.mark.parametrize("k", [0, 1, 5, 31, 40])
+def test_shift_right_limbs_and_toeplitz_match_jax(k):
+    rng = np.random.default_rng(k)
+    a = tl.from_pyints(_bigints(rng, 4, 256), 32)
+    got, want = _both(lambda t: tl.shift_right_limbs(t, k),
+                      lambda j: jl.shift_right_limbs(j, k), a)
+    np.testing.assert_array_equal(got, want)
+    b = rng.integers(0, 256, k + 1).astype(np.int32)
+    np.testing.assert_array_equal(tl.toeplitz(b, 7), jl.toeplitz(b, 7))
+
+
+def _barrett_case(bits, seed):
+    rng = np.random.default_rng(seed)
+    n_int = _bigints(rng, 1, bits)[0] | (1 << (bits - 1)) | 1
+    Ln = tl.num_limbs_for_bits(bits)
+    xs = _bigints(rng, 30, 16 * Ln)
+    xs += [0, n_int - 1, n_int, 3 * n_int + 5, (1 << (16 * Ln)) - 1]
+    return n_int, Ln, xs
+
+
+@pytest.mark.parametrize("bits,seed", [(64, 0), (160, 1), (256, 2),
+                                       (1024, 3)])
+def test_barrett_matches_jax_and_python_ints(bits, seed):
+    n_int, Ln, xs = _barrett_case(bits, seed)
+    tctx = tl.barrett_precompute(n_int)
+    jctx = jl.barrett_precompute(n_int)
+    assert tctx.Ln == jctx.Ln == Ln
+    for name in ("n", "T_mu", "T_n"):
+        np.testing.assert_array_equal(getattr(tctx, name).host,
+                                      np.asarray(getattr(jctx, name)))
+    x = tl.from_pyints(xs, 2 * Ln)
+    got = tl.barrett_reduce(torch.from_numpy(x), tctx)
+    want = jl.barrett_reduce(jnp.asarray(x), jctx)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert tl.to_pyints(got) == [v % n_int for v in xs]
+    # narrower operands are padded to 2 Ln; wider ones are refused
+    got = tl.barrett_reduce(torch.from_numpy(x[:, : Ln + 3]), tctx)
+    want = jl.barrett_reduce(jnp.asarray(x[:, : Ln + 3]), jctx)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    with pytest.raises(ValueError, match="too wide"):
+        tl.barrett_reduce(torch.zeros((1, 2 * Ln + 1), dtype=torch.int32),
+                          tctx)
+    # mod_mul_fixed: (a * b) mod n for a, b < n
+    b_int = xs[0] % n_int
+    T_b = tl.toeplitz(tl.from_pyints([b_int], Ln)[0], Ln)
+    a_ints = [v % n_int for v in xs[1:]]
+    a = tl.from_pyints(a_ints, Ln)
+    got = tl.mod_mul_fixed(torch.from_numpy(a), torch.from_numpy(T_b), tctx)
+    want = jl.mod_mul_fixed(jnp.asarray(a), jnp.asarray(T_b), jctx)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert tl.to_pyints(got) == [(v * b_int) % n_int for v in a_ints]
+    got = tl.mul_fixed(torch.from_numpy(a), torch.from_numpy(T_b))
+    np.testing.assert_array_equal(
+        got.numpy(), np.asarray(jl.mul_fixed(jnp.asarray(a),
+                                             jnp.asarray(T_b))))
+
+
+def test_no_function_changes_its_arguments():
+    """Every limb function returns new tensors and leaves its inputs as
+    they were (the JAX functions are pure)."""
+    n_int, Ln, xs = _barrett_case(160, 7)
+    ctx = tl.barrett_precompute(n_int)
+    x = torch.from_numpy(tl.from_pyints(xs, 2 * Ln))
+    a = torch.from_numpy(tl.from_pyints([v % n_int for v in xs], Ln))
+    b = torch.flip(a, dims=[0]).contiguous()
+    n = torch.from_numpy(tl.from_pyints([n_int], Ln)[0])
+    T = torch.from_numpy(tl.toeplitz(tl.from_pyints([xs[0] % n_int],
+                                                    Ln)[0], Ln))
+    lazy = torch.from_numpy(_lazy_mixed(np.random.default_rng(1))[0])
+    diff = a - torch.minimum(a, b)
+    calls = [
+        (tl.carry_fix, (lazy,)), (tl.borrow_fix, (diff,)),
+        (tl.add, (a, b)), (tl.sub, (torch.maximum(a, b), b)),
+        (tl.compare, (a, b)), (tl.geq, (a, b)), (tl.is_zero, (a,)),
+        (tl.cond_sub, (a + a, n)), (lambda t: tl.shift_right_limbs(t, 3),
+                                    (a,)),
+        (lambda t: tl.shift_left_bits(t, 13), (a,)),
+        (lambda t: tl.mask_bits(t, 29), (a,)),
+        (lambda t: tl.pad_limbs(t, Ln + 2), (a,)),
+        (tl.mul_fixed, (a, T)), (lambda t: tl.barrett_reduce(t, ctx), (x,)),
+        (lambda t, u: tl.mod_mul_fixed(t, u, ctx), (a, T)),
+    ]
+    for fn, args in calls:
+        before = [t.clone() for t in args]
+        fn(*args)
+        for t, t0 in zip(args, before):
+            assert torch.equal(t, t0), fn
+    for name in ("n", "T_mu", "T_n"):
+        table = getattr(ctx, name)
+        assert torch.equal(table.on("cpu"), torch.from_numpy(table.host))
+        assert table.on("cpu") is table.on(torch.device("cpu"))

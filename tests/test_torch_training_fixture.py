@@ -2,10 +2,11 @@
 to, checked on the CPU.
 
 ``src/repro_torch/fixtures/train_*`` were written by
-``tests/make_torch_training_fixture.py`` from JAX fits.  The small
-two-host reference must still be what the JAX package fits now, and both
-references (the two-host case and the 65,536-row scale shape) must be
-what the port fits on the CPU, through the same comparison
+``tests/make_torch_training_fixture.py`` from JAX fits, with the plain and
+the affine cipher.  Each reference records the run its maker defines; the
+small two-host references must still be what the JAX package fits now;
+and every reference (the two-host cases and the 65,536-row scale shape)
+must be what the port fits on the CPU, through the same comparison
 ``chip_smoke.py`` makes on the card: tree signatures, scores over the
 training rows, ``channel.summary()`` after the fit and after scoring, and
 the integer ``Stats`` counters, all equal.
@@ -18,7 +19,7 @@ import numpy as np
 import pytest
 import torch
 
-from make_torch_training_fixture import fit_reference
+from make_torch_training_fixture import FIXTURE_RUNS, fit_reference
 
 ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
 sys.path.insert(0, ROOT)
@@ -27,9 +28,13 @@ import chip_smoke  # noqa: E402
 torch.set_num_threads(2)
 
 
-def test_two_host_reference_is_the_jax_fit():
-    ref, scores = chip_smoke.training_reference(chip_smoke.TRAIN_TWO_HOSTS)
-    want, want_scores = fit_reference(chip_smoke.TRAIN_TWO_HOSTS)
+ALL = (chip_smoke.TRAIN_TWO_HOSTS, chip_smoke.TRAIN_SCALE,
+       chip_smoke.TRAIN_TWO_HOSTS_AFFINE, chip_smoke.TRAIN_SCALE_AFFINE)
+
+
+def _assert_reference_is_the_jax_fit(name):
+    ref, scores = chip_smoke.training_reference(name)
+    want, want_scores = fit_reference(name)
     # JSON turns the signature tuples into lists
     assert ref["signatures"] == [[list(r) for r in t]
                                  for t in want["signatures"]]
@@ -38,8 +43,23 @@ def test_two_host_reference_is_the_jax_fit():
     np.testing.assert_array_equal(scores, want_scores)
 
 
-@pytest.mark.parametrize("name", [chip_smoke.TRAIN_TWO_HOSTS,
-                                  chip_smoke.TRAIN_SCALE])
+def test_two_host_reference_is_the_jax_fit():
+    _assert_reference_is_the_jax_fit(chip_smoke.TRAIN_TWO_HOSTS)
+
+
+def test_affine_two_host_reference_is_the_jax_fit():
+    _assert_reference_is_the_jax_fit(chip_smoke.TRAIN_TWO_HOSTS_AFFINE)
+
+
+@pytest.mark.parametrize("name", ALL)
+def test_reference_records_the_makers_run(name):
+    ref, _ = chip_smoke.training_reference(name)
+    data, params = FIXTURE_RUNS[name]
+    assert (ref["data"], ref["params"]) == (data, params)
+    assert ref["params"]["cipher"] == name.split("_")[-1]
+
+
+@pytest.mark.parametrize("name", ALL)
 def test_port_cpu_fit_equals_committed_reference(name):
     model, bad, _ = chip_smoke.train_and_compare(name, "cpu")
     assert bad == []
