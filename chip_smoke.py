@@ -36,18 +36,27 @@ Phases, each fatal on failure (nothing is caught and carried on):
    ints' ``(v * b) % n``.  Times beside its bound, its plain version and
    an fp32 ``torch.matmul`` of the same shapes with TF32 off (the product
    alone, no carry; a yardstick the port never calls).
-6. Serving phase (the serving path): loads the committed JAX export
+6. Forest histogram kernel (K4, the same CUDA body as K1 with a member
+   axis): against its plain version, ``torch.equal``, at the forest4
+   path's shapes (65,536 rows, 14 host features, 32 bins, 4 members, 67
+   limbs of a 512-bit key, 1/2/4 nodes a member, a fifth of each member's
+   rows in no node) and on edge inputs (all slots masked, all bins
+   masked, a member with no rows, row counts off the tiles, W = 131 over
+   two limb tiles, a node-tiled case, one row); at k = 1 it must equal K1.
+   Times beside its bound, its plain version and one ``index_add_`` over
+   the member-expanded composite index (a yardstick the port never calls).
+7. Serving phase (the serving path): loads the committed JAX export
    ``src/repro_torch/fixtures/serving_t25_d6`` with ``load_ensemble`` on
    the card and serves it with ``FederatedPredictor``: the 65536-row
    reference batch, whose scores must equal the JAX package's committed
    scores bit for bit, four more 65536-row batches and one 1,048,576-row
    batch.  Kernel launch counts are zeroed just before and read just
    after; every kernel of the path must have launched.
-7. Branches: the two small committed JAX exports under
+8. Branches: the two small committed JAX exports under
    ``fixtures/serving_branches`` (multiclass with two hosts, and
    multi-output leaves) served on the card, scores bit-identical to the
    JAX package's, so every branch of the score accumulation is held.
-8. Training phase (the training path): ``VerticalBoosting`` with the
+9. Training phase (the training path): ``VerticalBoosting`` with the
    plain cipher trains the scale shape of ``benchmarks/bench_tree_build.py``
    (65,536 rows, 2 guest and 14 host features, 3 trees of depth 4, 32
    bins) on the card and scores the training rows; launch counts are
@@ -60,27 +69,35 @@ Phases, each fatal on failure (nothing is caught and carried on):
    seconds per tree (the first apart, as warm-up), the device's idle
    share (device busy time under ``torch.profiler`` over the untraced wall
    time of the same boosting rounds, run just before; this phase profiles
-   the first round only, phase 10 all of its rounds), ``carry_fix``
+   the first round only), ``carry_fix``
    and ``borrow_fix`` iterations (one sync each), and device time by stage
    (bins, K1, the layer reduce, the cumsum, compress, decrypt and decode;
    each run of the port's own kernels in the profile is added to the
    stages its launch was made in).
-9. Two hosts: the small two-host case of ``tests/test_gbdt.py`` trained
+10. Two hosts: the small two-host case of ``tests/test_gbdt.py`` trained
    on the card, equal to its committed reference
    (``fixtures/train_two_hosts_plain``).
-10. Affine training: phase 8 again with ``cipher="affine"`` (1024-bit
+11. Affine training: phase 9 again with ``cipher="affine"`` (1024-bit
     key, ``fixtures/train_scale_affine``), where all three kernels must
     have launched, with the modmul stages beside the others
-    (encrypt-modmul, Barrett-in-reduce, decrypt-modmul); then phase 9 with
+    (encrypt-modmul, Barrett-in-reduce, decrypt-modmul); then phase 10 with
     the affine two-host case (``fixtures/train_two_hosts_affine``:
     ``key_bits=256``, ``precision=20``).
-11. Serving throughput, latency and profile (after the counted runs):
+12. Forest training: phase 9 with ``forest_size=4`` (the ``forest4`` row
+    of ``benchmarks/bench_tree_build.py`` without pipelining:
+    ``fixtures/train_forest4_affine``, 2 rounds of 4 member trees, 512-bit
+    key), where K4 must launch 8 times (2 rounds x 4 layers) and K1 gives
+    way to it in the stages; each round's member bags are held to the
+    reference's sha256 as well; then the two-host forest
+    (``fixtures/train_two_hosts_forest``: plain cipher, 3 members a round).
+    This phase and phase 9 profile one round, phase 11 all of its rounds.
+13. Serving throughput, latency and profile (after the counted runs):
    windows of back-to-back batches (100 of 65536 rows, 8 of 1,048,576),
    rows/s as all rows over the window's time, p50/p90 per batch; then a
    window of batches of each size untraced and again under
    ``torch.profiler``, for device time by kernel and the device's idle
    share of the untraced wall time.
-12. Prints the seconds each phase took, the kernels' JSON line, the card
+14. Prints the seconds each phase took, the kernels' JSON line, the card
     line, and last the device line.
 
 With ``--json PATH`` every number, the build log and the per-kernel
@@ -92,6 +109,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import functools
+import hashlib
 import json
 import os
 import subprocess
@@ -109,6 +127,8 @@ TRAIN_SCALE = "train_scale_plain"
 TRAIN_TWO_HOSTS = "train_two_hosts_plain"
 TRAIN_SCALE_AFFINE = "train_scale_affine"
 TRAIN_TWO_HOSTS_AFFINE = "train_two_hosts_affine"
+TRAIN_FOREST4 = "train_forest4_affine"
+TRAIN_TWO_HOSTS_FOREST = "train_two_hosts_forest"
 
 # H100 SXM published peaks: HBM3 bandwidth, and fp32 outside the tensor
 # cores (the rate a compare or a 32-bit add runs at)
@@ -327,17 +347,21 @@ def branch_phase(torch, dev) -> list:
     return rows
 
 
-def layer_hist_bound(bins, slot, W: int, n_nodes: int,
-                     n_bins: int) -> tuple:
-    """Least time for the layer histogram on these inputs: every slot
-    read, the bins and limbs of the rows that lie in a node read once, the
-    histogram written once; or one 32-bit add per (counted row, feature,
+def hist_bound(bins, slot, W: int, n_nodes: int, n_bins: int) -> tuple:
+    """Least time for the layer (slot (n_i,)) or forest (slot (n_i, k))
+    histogram on these inputs: every slot read, the bins and limbs of the
+    rows that lie in a node of some member read once, the k histograms
+    written once; or one 32-bit add per (counted row, member, feature,
     limb) -- whichever is longer."""
     n_i, n_f = bins.shape
-    in_node = (slot >= 0) & (slot < n_nodes)
-    rows = int(in_node.sum())
-    pairs = int(((bins >= 0) & (bins < n_bins) & in_node[:, None]).sum())
-    nbytes = 4 * (n_i + rows * (n_f + W) + n_nodes * n_f * n_bins * W)
+    slot = slot.reshape(n_i, -1)
+    k = slot.shape[1]
+    in_node = (slot >= 0) & (slot < n_nodes)                  # (n_i, k)
+    rows = int(in_node.any(dim=1).sum())
+    bins_ok = ((bins >= 0) & (bins < n_bins)).sum(dim=1)      # (n_i,)
+    pairs = int((bins_ok * in_node.sum(dim=1)).sum())
+    nbytes = 4 * (n_i * k + rows * (n_f + W)
+                  + k * n_nodes * n_f * n_bins * W)
     t_bytes = nbytes / HBM_BYTES_PER_S
     t_ops = pairs * W / FP32_OPS_PER_S
     return (max(t_bytes, t_ops) * 1e3,
@@ -406,7 +430,7 @@ def layer_hist_phase(torch, dev) -> list:
                                                          n_nodes, n_bins),
                            reps=5)
         lib_ms = time_ms(torch, lambda: lib_out.index_add_(0, idx, src))
-        bound_ms, bound_by = layer_hist_bound(bins, slot, W, n_nodes, n_bins)
+        bound_ms, bound_by = hist_bound(bins, slot, W, n_nodes, n_bins)
         del idx, src, lib_out
         rows.append(dict(shape=[n_i, n_f, n_bins, W], n_nodes=n_nodes,
                          masked_slots=mask, max_abs_err=err, ms=ms,
@@ -447,6 +471,122 @@ def layer_hist_phase(torch, dev) -> list:
               "memory)", flush=True)
     else:
         fail("layer_hist took a bin count past its shared memory")
+    return rows
+
+
+def k4_inputs(torch, dev, n_i, n_f, n_bins, k, n_nodes, W, seed,
+              bin_mask=0.0, slot_mask=0.0):
+    """Random bins, (n_i, k) member slots and canonical limbs on the card,
+    with the given shares of the bins and of each member's slots set to
+    -1."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    kw = dict(generator=g, device=dev, dtype=torch.int32)
+    bins = torch.randint(0, n_bins, (n_i, n_f), **kw)
+    slot = torch.randint(0, n_nodes, (n_i, k), **kw)
+    cts = torch.randint(0, 256, (n_i, W), **kw)
+    bins[torch.rand((n_i, n_f), generator=g, device=dev) < bin_mask] = -1
+    slot[torch.rand((n_i, k), generator=g, device=dev) < slot_mask] = -1
+    return bins, slot, cts
+
+
+def k4_edges(torch, dev) -> list:
+    """Forest histogram edge inputs: (name, bins, slot, cts, n_nodes,
+    n_bins)."""
+    out = []
+    bins, slot, cts = k4_inputs(torch, dev, 65536, 14, 32, 4, 4, 67, 1)
+    out.append(("all slots masked", bins, torch.full_like(slot, -1), cts,
+                4, 32))
+    out.append(("all bins masked", torch.full_like(bins, -1), slot, cts, 4,
+                32))
+    empty = slot.clone()
+    empty[:, 2] = -1
+    out.append(("member 2 has no rows", bins, empty, cts, 4, 32))
+    for name, n_i, n_f, n_bins, k, n_nodes, W in (
+            ("rows off the tile", 65537, 14, 32, 4, 3, 67),
+            ("few rows, 5 nodes, k = 3", 1000, 5, 32, 3, 5, 67),
+            ("W = 131, k = 3 (limb-tiled)", 8193, 14, 32, 3, 3, 131),
+            ("node-tiled: 64 nodes x 256 bins, k = 2", 4096, 3, 256, 2, 64,
+             67),
+            ("one row", 1, 1, 2, 2, 1, 1)):
+        b, sl, c = k4_inputs(torch, dev, n_i, n_f, n_bins, k, n_nodes, W,
+                             seed=n_i, bin_mask=0.1, slot_mask=0.2)
+        out.append((name, b, sl, c, n_nodes, n_bins))
+    return out
+
+
+def forest_hist_phase(torch, dev) -> list:
+    """K4 against its plain version at the forest4 path's shapes (65,536
+    rows, 14 host features, 32 bins, 4 members, W = 67 limbs of a 512-bit
+    key, 1/2/4 nodes a member, a fifth of each member's rows in no node)
+    and on edge inputs, ``torch.equal``; k = 1 against K1 too.  Timed at
+    the path's shapes beside its bound, its plain version and one
+    ``index_add_`` over the member-expanded composite index (a yardstick
+    the port never calls)."""
+    from repro_torch.kernels.histogram import forest_hist_ref
+    from repro_torch.kernels.histogram.histogram import (forest_hist_cuda,
+                                                         layer_hist_cuda)
+    n_i, n_f, n_bins, k, W = 65536, 14, 32, 4, 67
+    rows = []
+    for n_nodes in (1, 2, 4):
+        bins, slot, cts = k4_inputs(torch, dev, n_i, n_f, n_bins, k, n_nodes,
+                                    W, seed=n_nodes, slot_mask=0.2)
+        out = forest_hist_cuda(bins, slot, cts, n_nodes, n_bins)
+        ref = forest_hist_ref(bins, slot, cts, n_nodes, n_bins)
+        torch.cuda.synchronize()
+        if not torch.equal(out, ref):
+            fail(f"forest_hist kernel != plain at k={k}, {n_nodes} nodes: "
+                 f"{int((out != ref).sum())} sums differ")
+        err = int((out.long() - ref.long()).abs().max())
+        # the yardstick: one index_add_ over the (member, node, feature,
+        # bin) index, its source expanded to one limb row per (row,
+        # member, feature) beforehand
+        ok = (slot[:, :, None] >= 0) & (bins[:, None, :] >= 0)
+        idx = (((torch.arange(k, device=dev)[None, :, None] * n_nodes
+                 + slot.long()[:, :, None]) * n_f
+                + torch.arange(n_f, device=dev)) * n_bins
+               + bins.long()[:, None, :])[ok]
+        src = cts[:, None, None, :].expand(n_i, k, n_f, W)[ok].contiguous()
+        lib_out = torch.zeros((k * n_nodes * n_f * n_bins, W),
+                              dtype=torch.int32, device=dev)
+        lib_out.index_add_(0, idx, src)
+        if not torch.equal(lib_out.view_as(ref), ref):
+            fail(f"the index_add_ yardstick disagrees at {n_nodes} nodes")
+        ms = time_ms(torch, lambda: forest_hist_cuda(bins, slot, cts,
+                                                     n_nodes, n_bins))
+        plain_ms = time_ms(torch, lambda: forest_hist_ref(bins, slot, cts,
+                                                          n_nodes, n_bins),
+                           reps=5)
+        lib_ms = time_ms(torch, lambda: lib_out.index_add_(0, idx, src))
+        bound_ms, bound_by = hist_bound(bins, slot, W, n_nodes, n_bins)
+        del idx, src, lib_out
+        rows.append(dict(shape=[n_i, n_f, n_bins, W], k=k, n_nodes=n_nodes,
+                         masked_slots=0.2, max_abs_err=err, ms=ms,
+                         plain_ms=plain_ms, library_ms=lib_ms,
+                         bound_ms=bound_ms, bound_by=bound_by))
+        print(f"kernel forest_hist {n_i}x{n_f}x{n_bins}x{W} k={k} {n_nodes} "
+              f"node(s): equal, ms={ms:.5f} plain_ms={plain_ms:.5f} "
+              f"library_ms={lib_ms:.5f} bound_ms={bound_ms:.5f} "
+              f"({bound_by})", flush=True)
+    for name, bins, slot, cts, n_nodes, nb in k4_edges(torch, dev):
+        out = forest_hist_cuda(bins, slot, cts, n_nodes, nb)
+        ref = forest_hist_ref(bins, slot, cts, n_nodes, nb)
+        torch.cuda.synchronize()
+        if not torch.equal(out, ref):
+            fail(f"forest_hist kernel != plain on edge input '{name}'")
+        print(f"kernel forest_hist edge '{name}' ({tuple(bins.shape)}, k="
+              f"{slot.shape[1]}, {n_nodes} nodes, W={cts.shape[1]}): equal",
+              flush=True)
+    # k = 1 is K1: the same sums through either entry
+    bins, slot, cts = k4_inputs(torch, dev, n_i, n_f, n_bins, 1, 4, W, 7,
+                                bin_mask=0.1, slot_mask=0.2)
+    out = forest_hist_cuda(bins, slot, cts, 4, n_bins)
+    k1 = layer_hist_cuda(bins, slot[:, 0].contiguous(), cts, 4, n_bins)
+    ref = forest_hist_ref(bins, slot, cts, 4, n_bins)
+    torch.cuda.synchronize()
+    if not (torch.equal(out, ref) and torch.equal(out[0], k1)):
+        fail("forest_hist at k = 1 != layer_hist")
+    print("kernel forest_hist edge 'k = 1': equal to its plain version and "
+          "to layer_hist", flush=True)
     return rows
 
 
@@ -613,11 +753,23 @@ def int_stats(stats) -> dict:
             if isinstance(v, int) and not isinstance(v, bool)}
 
 
+def bags_digest(bags) -> str:
+    """sha256 of one round's member bags (row positions), as int64: the
+    reference's ``bags_sha256`` entries."""
+    return hashlib.sha256(np.stack([np.asarray(b, np.int64)
+                                    for b in bags]).tobytes()).hexdigest()
+
+
 def compare_training(ref, ref_scores, trees, summary_fit: dict,
-                     stats: dict, scores, summary_predict: dict) -> list:
+                     stats: dict, scores, summary_predict: dict,
+                     bags=None) -> list:
     """Every way a trained model differs from its reference; [] when the
-    trees, ledgers, counters and scores are all equal."""
+    trees, ledgers, counters, scores and (for a round-forest) each round's
+    member bags are all equal."""
     bad = []
+    if "bags_sha256" in ref and bags != ref["bags_sha256"]:
+        bad.append(f"member bags differ from the reference's (the sampler, "
+                   f"not the histograms): {bags} != {ref['bags_sha256']}")
     sigs = [signature_json(t) for t in trees]
     if len(sigs) != len(ref["signatures"]):
         bad.append(f"{len(sigs)} trees, reference {len(ref['signatures'])}")
@@ -648,37 +800,47 @@ def train_and_compare(name: str, device) -> tuple:
     """Train a committed reference's run with the port on ``device`` and
     score its training rows.  Returns (model, mismatches, fit seconds)."""
     from repro_torch.core import SBTParams, VerticalBoosting
+    from repro_torch.core.boosting import forest_bags
     ref, ref_scores = training_reference(name)
     Xg, Xh, y = training_data(ref)
+    params = SBTParams(device=device, **ref["params"])
     t0 = time.perf_counter()
-    model = VerticalBoosting(SBTParams(device=device, **ref["params"]))
+    model = VerticalBoosting(params)
     model.fit(Xg, y, Xh)
     fit_s = time.perf_counter() - t0
     summary_fit = model.channel.summary()
     stats = int_stats(model.stats)
     scores = model.predict_score(Xg, Xh)
+    bags = ([bags_digest(forest_bags(params, t, len(y)))
+             for t in range(params.n_trees)]
+            if params.forest_size > 1 else None)
     return (model, compare_training(ref, ref_scores, model.trees, summary_fit,
-                                    stats, scores, model.channel.summary()),
+                                    stats, scores, model.channel.summary(),
+                                    bags=bags),
             fit_s)
 
 
 # the port's own kernels, launched through ctypes with no PyTorch op
 # around them, which the profiler does not attribute to the enclosing
-# range: (wrapper module, launching function, kernel name)
+# range: (wrapper module, launching function, kernel name).  K1 and K4 are
+# one kernel body, so their launches are matched to its runs together.
 OWN_LAUNCHERS = (("repro_torch.kernels.binning.ops", "bucketize_cuda",
                   "bucketize_kernel"),
                  ("repro_torch.kernels.histogram.ops", "layer_hist_cuda",
+                  "layer_hist_kernel"),
+                 ("repro_torch.kernels.histogram.ops", "forest_hist_cuda",
                   "layer_hist_kernel"),
                  ("repro_torch.kernels.modmul.ops", "mul_fixed_cuda",
                   "mul_fixed_kernel"))
 
 
 @contextlib.contextmanager
-def stage_ranges(torch, affine: bool = False):
+def stage_ranges(torch, affine: bool = False, forest: bool = False):
     """Wrap the training path's stages in ``torch.profiler`` ranges (only
     while profiling here; the port itself carries none), the affine
-    cipher's modmul stages too when ``affine``, and note the stages each
-    launch of the port's own kernels was made in.  Yields a namespace:
+    cipher's modmul stages too when ``affine``, the forest histogram's
+    launch in place of the layer histogram's when ``forest``, and note
+    the stages each launch of the port's own kernels was made in.  Yields a namespace:
     ``names``, the stage names (a caller that reached a stage by a name
     bound before the patch would bypass its range, so the caller fails on
     any stage the profile saw no call of), and ``own_ms(prof)``, the own
@@ -694,11 +856,13 @@ def stage_ranges(torch, affine: bool = False):
     import repro_torch.kernels.modmul as modmul
     from repro_torch.core.he.affine import AffineCipher
     from repro_torch.core.histogram import CipherHistogram
+    hist = ("K4", "_forest_dispatch", "forest_hist") if forest else \
+        ("K1", "_layer_dispatch", "layer_hist")
     targets = [(boosting, "bin_features", "sbt:bins"),
                (tree, "_encrypt_all", "sbt:encrypt"),
                (CipherHistogram, "layer_histograms",
-                "sbt:layer_histograms (K1 + lazy_sub + reduce)"),
-               (CipherHistogram, "_layer_dispatch", "sbt:K1 layer_hist"),
+                f"sbt:layer_histograms ({hist[0]} + lazy_sub + reduce)"),
+               (CipherHistogram, hist[1], f"sbt:{hist[0]} {hist[2]}"),
                (CipherHistogram, "cumsum", "sbt:cumsum + reduce"),
                (tree.compress_mod, "compress_batch", "sbt:compress"),
                (tree, "_host_layer_finish", "sbt:decrypt + decode"),
@@ -731,7 +895,7 @@ def stage_ranges(torch, affine: bool = False):
 
     def own_ms(prof) -> dict:
         out = {}
-        for _, _, kernel in OWN_LAUNCHERS:
+        for kernel in dict.fromkeys(k for _, _, k in OWN_LAUNCHERS):
             mine = [st for k, st in launched if k == kernel]
             seen = sorted((e for e in prof.events() if kernel in e.name
                            and "CUDA" in str(e.device_type)),
@@ -801,22 +965,23 @@ def stage_times(prof, own_ms: dict) -> dict:
 
 def training_phase(torch, dev, name: str, rounds: int | None = None) -> dict:
     """The training path on the card for the committed reference ``name``
-    (plain or affine cipher), counted, then timed and profiled over its
-    first ``rounds`` boosting rounds (all of them when None)."""
+    (plain or affine cipher, one tree or a round-forest a round), counted,
+    then timed and profiled over its first ``rounds`` boosting rounds (all
+    of them when None)."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.core import SBTParams, VerticalBoosting
     from repro_torch.core.he import limbs
     from repro_torch.kernels.binning import bucketize
-    from repro_torch.kernels.histogram import layer_ciphertext_histogram
-    from repro_torch.kernels.modmul import mul_fixed
     from repro_torch.serving import FederatedPredictor, PackedEnsemble
 
     ref, ref_scores = training_reference(name)
     Xg, Xh, y = training_data(ref)
     affine = ref["params"]["cipher"] == "affine"
-    counters = {"bucketize": bucketize,
-                "layer_hist": layer_ciphertext_histogram}
+    k = ref["params"].get("forest_size", 1)
+    hist_name, hist = hist_counter(k)
+    counters = {"bucketize": bucketize, hist_name: hist}
     if affine:
+        from repro_torch.kernels.modmul import mul_fixed
         counters["mul_fixed"] = mul_fixed
 
     # the counted run: fit and score, launch counts zeroed just before
@@ -834,10 +999,10 @@ def training_phase(torch, dev, name: str, rounds: int | None = None) -> dict:
         if count <= 0:
             fail(f"the {name} training path never launched the {kname} "
                  f"kernel")
-    if launches["layer_hist"] != model.stats.n_hist_launches:
-        fail(f"{launches['layer_hist']} layer_hist launches, Stats counts "
+    if launches[hist_name] != model.stats.n_hist_launches:
+        fail(f"{launches[hist_name]} {hist_name} launches, Stats counts "
              f"{model.stats.n_hist_launches}")
-    tree_s = list(model.stats.tree_seconds)
+    tree_s = list(model.stats.tree_seconds)     # one entry a round
 
     # the trained model, served through a fresh FederatedPredictor
     ens = PackedEnsemble.from_model(model, device=dev)
@@ -849,7 +1014,8 @@ def training_phase(torch, dev, name: str, rounds: int | None = None) -> dict:
     print(f"training {name}: trees, scores ({len(ref_scores)} rows), "
           f"ledgers and Stats counters equal to the JAX reference; served "
           f"again through FederatedPredictor, equal; fit {fit_s:.3f} s; "
-          f"seconds per tree " + ", ".join(f"{t:.3f}" for t in tree_s)
+          f"seconds per round of {k} tree(s) "
+          + ", ".join(f"{t:.3f}" for t in tree_s)
           + f" (the first is warm-up); launches {launches}; carry_fix "
           f"iterations {carry_iters}, borrow_fix iterations {borrow_iters}",
           flush=True)
@@ -868,7 +1034,7 @@ def training_phase(torch, dev, name: str, rounds: int | None = None) -> dict:
 
     m3 = VerticalBoosting(params)
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
-    with stage_ranges(torch, affine) as ranges:
+    with stage_ranges(torch, affine, forest=k > 1) as ranges:
         with profile(activities=acts) as prof_bins:
             score = m3.begin_fit(Xg, y, Xh)
             torch.cuda.synchronize()
@@ -880,7 +1046,8 @@ def training_phase(torch, dev, name: str, rounds: int | None = None) -> dict:
             torch.cuda.synchronize()
             traced_ms = (time.perf_counter() - t0) * 1e3
         own_rounds = ranges.own_ms(prof)
-    if [signature_json(t) for t in m3.trees] != ref["signatures"][:n_rounds]:
+    if [signature_json(t) for t in m3.trees] != \
+            ref["signatures"][:n_rounds * k]:
         fail(f"the traced {name} run grew other trees")
     kernels = device_work(prof)
     busy = sum(r["device_ms"] for r in kernels)
@@ -895,9 +1062,11 @@ def training_phase(torch, dev, name: str, rounds: int | None = None) -> dict:
              f"were bypassed")
     res = dict(
         fixture=name, params=ref["params"], data=ref["data"],
-        equal_to_jax=True, fit_s=fit_s, tree_seconds=tree_s,
-        warmup_tree_s=tree_s[0],
-        steady_tree_s=float(np.mean(tree_s[1:])) if len(tree_s) > 1 else None,
+        equal_to_jax=True, fit_s=fit_s, trees_per_round=k,
+        round_seconds=tree_s, warmup_round_s=tree_s[0],
+        steady_round_s=(float(np.mean(tree_s[1:])) if len(tree_s) > 1
+                        else None),
+        member_tree_seconds=[t / k for t in tree_s],
         launches=launches, carry_fix_iterations=carry_iters,
         borrow_fix_iterations=borrow_iters,
         n_hist_launches=model.stats.n_hist_launches,
@@ -907,17 +1076,17 @@ def training_phase(torch, dev, name: str, rounds: int | None = None) -> dict:
         rounds_device_busy_ms=busy, idle_share=1.0 - busy / wall_ms,
         rounds_device_launches=sum(r["calls"] for r in kernels),
         traced_idle_share=1.0 - busy / traced_ms,
-        per_tree_stage_device_ms={k: v["device_ms"] / n_rounds
-                                  for k, v in stages.items()},
-        per_tree_stage_host_ms={k: v["cpu_ms"] / n_rounds
-                                for k, v in stages.items()},
+        per_round_stage_device_ms={st: v["device_ms"] / n_rounds
+                                   for st, v in stages.items()},
+        per_round_stage_host_ms={st: v["cpu_ms"] / n_rounds
+                                 for st, v in stages.items()},
         stages=stages, binning=binning, kernels=kernels[:25])
     print(f"training profile {name}: {n_rounds} rounds in {wall_ms:.3f} ms "
           f"untraced ({traced_ms:.3f} traced), device busy {busy:.3f} ms, "
-          f"idle share {res['idle_share']:.3f}; per tree by stage, device "
-          f"ms / host ms: " + "; ".join(f"{k}={v['device_ms'] / n_rounds:.3f}/"
+          f"idle share {res['idle_share']:.3f}; per round by stage, device "
+          f"ms / host ms: " + "; ".join(f"{st}={v['device_ms'] / n_rounds:.3f}/"
                                         f"{v['cpu_ms'] / n_rounds:.3f}"
-                                        for k, v in sorted(stages.items()))
+                                        for st, v in sorted(stages.items()))
           + f"; binning (once per fit) device ms / host ms "
           f"{binning['device_ms']:.3f}/{binning['cpu_ms']:.3f}"
           + "; top kernels: " + "; ".join(
@@ -926,15 +1095,31 @@ def training_phase(torch, dev, name: str, rounds: int | None = None) -> dict:
     return res
 
 
+def hist_counter(k: int) -> tuple:
+    """(name, wrapper) of the histogram kernel a fit with ``forest_size``
+    k launches: K4 for a round-forest, K1 otherwise."""
+    from repro_torch.kernels.histogram import (forest_ciphertext_histogram,
+                                               layer_ciphertext_histogram)
+    return (("forest_hist", forest_ciphertext_histogram) if k > 1
+            else ("layer_hist", layer_ciphertext_histogram))
+
+
 def two_host_phase(dev, name: str) -> dict:
+    ref, _ = training_reference(name)
+    hist_name, hist = hist_counter(ref["params"].get("forest_size", 1))
+    hist.launches = 0
     model, bad, fit_s = train_and_compare(name, dev)
     if bad:
         fail(f"{name} differs from the JAX reference: " + "; ".join(bad))
+    if not 0 < hist.launches == model.stats.n_hist_launches:
+        fail(f"{hist.launches} {hist_name} launches, Stats counts "
+             f"{model.stats.n_hist_launches}")
     print(f"training {name}: trees, scores, ledgers and Stats counters "
-          f"equal to the JAX reference ({len(model.host_data)} hosts, fit "
-          f"{fit_s:.3f} s)", flush=True)
+          f"equal to the JAX reference ({len(model.host_data)} hosts, "
+          f"{len(model.trees)} trees, {hist.launches} {hist_name} launches, "
+          f"fit {fit_s:.3f} s)", flush=True)
     return dict(fixture=name, hosts=len(model.host_data), equal_to_jax=True,
-                fit_s=fit_s)
+                fit_s=fit_s, launches={hist_name: hist.launches})
 
 
 def serve_window(pred, X, n_g: int, n_rows: int, n_batches: int) -> list:
@@ -1070,6 +1255,8 @@ def main() -> int:
     lap("layer_hist")
     mrows = mul_fixed_phase(torch, dev)
     lap("mul_fixed")
+    frows = forest_hist_phase(torch, dev)
+    lap("forest_hist")
     pred, serving = serving_phase(torch, dev, ref, X)
     branches = branch_phase(torch, dev)
     lap("serving")
@@ -1081,6 +1268,13 @@ def main() -> int:
     training_affine = training_phase(torch, dev, TRAIN_SCALE_AFFINE)
     two_hosts_affine = two_host_phase(dev, TRAIN_TWO_HOSTS_AFFINE)
     lap("training_affine")
+    # the forest4 run profiles one round of its two
+    training_forest = training_phase(torch, dev, TRAIN_FOREST4, rounds=1)
+    if training_forest["launches"]["forest_hist"] != 8:
+        fail(f"{training_forest['launches']['forest_hist']} forest_hist "
+             f"launches in {TRAIN_FOREST4}, not 8 (2 rounds x 4 layers)")
+    two_hosts_forest = two_host_phase(dev, TRAIN_TWO_HOSTS_FOREST)
+    lap("training_forest")
     n_g = int(ref["n_guest"])
     latency = [latency_phase(pred, X, n_g, int(ref["n"]), 100),
                latency_phase(pred, X, n_g, N_BIG, 8)]
@@ -1095,6 +1289,7 @@ def main() -> int:
                     if r["party"] == "host" and r["shape"][0] == N_BIG)
     k1_row = hrows[0]                       # layer 0: 65536 rows, 1 node
     k2_row = mrows[0]                       # encryption, 1024-bit key
+    k4_row = frows[-1]                      # the largest call: 4 nodes
     kernels = {"kernels": [
         dict(name="bucketize", route="cuda",
              source="src/repro_torch/csrc/bucketize.cu",
@@ -1103,7 +1298,8 @@ def main() -> int:
              launches_by_path={
                  "serving": serving["launches"]["bucketize"],
                  "training": training["launches"]["bucketize"],
-                 "training_affine": training_affine["launches"]["bucketize"]},
+                 "training_affine": training_affine["launches"]["bucketize"],
+                 "training_forest": training_forest["launches"]["bucketize"]},
              max_abs_err=max(r["max_abs_err"] for r in krows),
              ms=main_row["ms"], plain_ms=main_row["plain_ms"],
              bound_ms=main_row["bound_ms"], bound_by=main_row["bound_by"],
@@ -1130,7 +1326,20 @@ def main() -> int:
              ms=k2_row["ms"], plain_ms=k2_row["plain_ms"],
              bound_ms=k2_row["bound_ms"], bound_by=k2_row["bound_by"],
              library_ms=k2_row["library_ms"], shape=k2_row["shape"],
-             case=k2_row["case"], matches_plain=True)]}
+             case=k2_row["case"], matches_plain=True),
+        dict(name="forest_hist", route="cuda",
+             source="src/repro_torch/csrc/layer_hist.cu",
+             replaces="src/repro/kernels/histogram/histogram.py:217",
+             launches=training_forest["launches"]["forest_hist"],
+             launches_by_path={
+                 "training_forest": training_forest["launches"]["forest_hist"],
+                 "two_hosts_forest": two_hosts_forest["launches"][
+                     "forest_hist"]},
+             max_abs_err=max(r["max_abs_err"] for r in frows),
+             ms=k4_row["ms"], plain_ms=k4_row["plain_ms"],
+             bound_ms=k4_row["bound_ms"], bound_by=k4_row["bound_by"],
+             library_ms=k4_row["library_ms"], shape=k4_row["shape"],
+             k=k4_row["k"], n_nodes=k4_row["n_nodes"], matches_plain=True)]}
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
               "count": torch.cuda.device_count()}
     if args.json:
@@ -1140,11 +1349,14 @@ def main() -> int:
             json.dump(dict(card=card, torch=torch.__version__,
                            cuda=torch.version.cuda, build_logs=build_logs,
                            kernel_rows=krows, layer_hist_rows=hrows,
-                           mul_fixed_rows=mrows, serving=serving,
+                           mul_fixed_rows=mrows, forest_hist_rows=frows,
+                           serving=serving,
                            branches=branches, training=training,
                            two_hosts=two_hosts,
                            training_affine=training_affine,
                            two_hosts_affine=two_hosts_affine,
+                           training_forest=training_forest,
+                           two_hosts_forest=two_hosts_forest,
                            latency=latency, profile=prof,
                            phase_seconds=phase_s,
                            **kernels, device=device), f, indent=1)

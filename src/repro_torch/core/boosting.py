@@ -6,7 +6,8 @@ with the host's ciphertext work on ``SBTParams.device`` (default
 ``"cuda"``: a card is required unless the caller asks for ``"cpu"``).  The
 port runs the binary objective, the default tree mode and the ``plain``
 and ``affine`` ciphers, with packing, histogram subtraction and
-compression on (or off);
+compression on (or off), one tree a round or a round-forest of
+``forest_size`` bagged member trees sharing one encrypted-GH broadcast;
 each option it does not run yet raises ``NotImplementedError`` naming the
 ROADMAP item that ports it, never quietly taking another path.
 
@@ -32,7 +33,7 @@ from .histogram import CipherHistogram
 from .loss import LogLoss
 from .party import Channel, Stats
 from .tree import (FederatedTree, HostRuntime, NoPackCodec, PackedCodec,
-                   TreeContext, grow_tree, predict_tree)
+                   TreeContext, grow_forest, grow_tree, predict_tree)
 
 
 @dataclasses.dataclass
@@ -56,7 +57,11 @@ class SBTParams:
     sparse: bool = False               # M9
     tree_mode: str = "default"         # default (mix | layered: M9)
     pipeline: bool = False             # M10
-    forest_size: int = 1               # M10
+    forest_size: int = 1               # round-forest width: k bagged
+                                       # trees a round share ONE enc_gh
+                                       # round-trip; binary objective only
+    forest_subsample: float = 0.8      # each member's bag fraction of the
+                                       # selected rows
     seed: int = 0
     device: str = "cuda"               # the device the hosts' ciphertext
                                        # work runs on; "cpu" runs the
@@ -78,7 +83,6 @@ _UNPORTED = (
     ("goss", lambda v: not v, "Queue 1 M9 (GOSS)"),
     ("sparse", lambda v: not v, "Queue 1 M9 (sparse-aware histograms)"),
     ("pipeline", lambda v: not v, "Queue 1 M10 (pipelining)"),
-    ("forest_size", lambda v: v == 1, "Queue 1 M10 (round-forests)"),
     ("mesh", lambda v: v is None, "Queue 1 M12 (multi-GPU)"),
     ("row_block", lambda v: not v, "Queue 1 M11 (out-of-core)"),
 )
@@ -103,8 +107,27 @@ def cipher_kwargs(params: SBTParams) -> dict:
     return {"key_bits": params.key_bits, "seed": params.seed}
 
 
+def forest_bags(params: SBTParams, t: int, n_sel: int) -> list:
+    """Round ``t``'s member bags: ``forest_size`` sorted row-position
+    subsets of the ``n_sel`` selected rows, drawn from the stream keyed by
+    the round's first absolute tree index, as the JAX package draws them
+    (so a replayed round draws the same bags)."""
+    k = params.forest_size
+    if params.forest_subsample >= 1.0:
+        return [np.arange(n_sel) for _ in range(k)]
+    rng = np.random.default_rng((params.seed, t * k, 29))
+    size = max(1, int(round(params.forest_subsample * n_sel)))
+    return [np.sort(rng.choice(n_sel, size, replace=False))
+            for _ in range(k)]
+
+
 class VerticalBoosting:
     def __init__(self, params: SBTParams):
+        if params.forest_size > 1 and params.objective != "binary":
+            raise ValueError(
+                "forest_size > 1 (round-forests) requires objective="
+                "'binary': multiclass rounds already batch one tree per "
+                "class and MO packs classes into slots")
         check_ported(params)
         self.params = params
         self.device = resolve_device(params.device)
@@ -161,23 +184,34 @@ class VerticalBoosting:
             return X
         return bin_features(X, self.params.n_bins, device=self.device)
 
+    @property
+    def trees_per_round(self) -> int:
+        """Trees one ``boost_round`` appends (the resume-boundary unit)."""
+        return max(1, self.params.forest_size)
+
     def boost_round(self, t: int, score: np.ndarray) -> np.ndarray:
-        """Grow round ``t``'s tree and return the updated score.  The input
-        score is never mutated and the tree is appended only after it
-        finished; the host shuffles are keyed by the absolute tree index,
-        so a replayed round regrows a bit-identical tree."""
-        if len(self.trees) != t:
+        """Grow round ``t``'s tree(s) and return the updated score.  The
+        input score is never mutated and the trees are appended only after
+        every tree of the round finished; the bags and host shuffles are
+        keyed by the absolute tree index, so a replayed round regrows
+        bit-identical trees."""
+        k = self.trees_per_round
+        if len(self.trees) != t * k:
             raise RuntimeError(
-                f"boost_round({t}) expects {t} trees, model has "
+                f"boost_round({t}) expects {t * k} trees, model has "
                 f"{len(self.trees)} — rollback_to_round first")
         score = np.array(score, np.float64, copy=True)
         t0 = time.perf_counter()
         g, h = self._loss.grad_hess(self._y, score)
-        ctx = self._tree_ctx(self.cipher, g, h, tree_idx=t)
-        tree, leaf_rows = grow_tree(ctx)
-        self.trees.append(tree)
-        self.tree_class.append(-1)
-        self._apply(score, tree, leaf_rows)
+        if self.params.forest_size > 1:
+            grown = self._grow_forest(self.cipher, g, h, t)
+        else:
+            grown = [grow_tree(self._tree_ctx(self.cipher, g, h,
+                                              tree_idx=t))]
+        for tree, leaf_rows in grown:
+            self.trees.append(tree)
+            self.tree_class.append(-1)
+            self._apply(score, tree, leaf_rows)
         dt = time.perf_counter() - t0
         self.stats.tree_seconds.append(dt)
         self.tracer.complete("round", int(t0 * 1e9), int(dt * 1e9), round=t)
@@ -185,8 +219,9 @@ class VerticalBoosting:
 
     def rollback_to_round(self, t: int) -> None:
         """Truncate the model to the round-``t`` boundary (replay)."""
-        del self.trees[t:]
-        del self.tree_class[t:]
+        keep = t * self.trees_per_round
+        del self.trees[keep:]
+        del self.tree_class[keep:]
         del self.stats.tree_seconds[t:]
         self._predictor = None
         self._predictor_n_trees = -1
@@ -204,15 +239,30 @@ class VerticalBoosting:
                                                    tracer=self.tracer))
                 for i, d in enumerate(self.host_data)]
 
-    def _tree_ctx(self, cipher, g, h, tree_idx: int) -> TreeContext:
-        """One tree's context: every row selected (GOSS is not ported)."""
+    def _tree_ctx(self, cipher, g, h, tree_idx: int,
+                  params=None) -> TreeContext:
+        """One tree's (or round-forest's) context: every row selected
+        (GOSS is not ported)."""
         sel = np.arange(g.shape[0])
-        return TreeContext(params=self.params, cipher=cipher,
+        return TreeContext(params=params or self.params, cipher=cipher,
                            codec=self._make_codec(cipher, g[sel], h[sel]),
                            channel=self.channel, stats=self.stats,
                            guest_data=self.guest_data, g=g, h=h,
                            sel_rows=sel, device=self.device,
                            hosts=self._make_hosts(cipher), tree_idx=tree_idx)
+
+    def _grow_forest(self, cipher, g, h, t: int) -> list:
+        """One round-forest (FedGBF-style): ``forest_size`` bagged member
+        trees sharing ONE enc_gh round-trip (``core/tree.py grow_forest``).
+        Leaf weights grow with ``learning_rate / k``, so the round's
+        additive update averages the members instead of overshooting k
+        times.  Returns ``[(tree, leaf_rows), ...]``."""
+        p = self.params
+        k = p.forest_size
+        bags = forest_bags(p, t, g.shape[0])
+        fp = dataclasses.replace(p, learning_rate=p.learning_rate / k)
+        ctx = self._tree_ctx(cipher, g, h, tree_idx=t * k, params=fp)
+        return grow_forest(ctx, bags)
 
     def _make_codec(self, cipher, g, h):
         p = self.params

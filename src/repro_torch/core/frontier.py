@@ -7,9 +7,9 @@ The port of the JAX package's ``core/frontier.py`` for one device:
   of canonical parent histograms; all device tensors that persist across
   layers.
 * :class:`CipherFrontier` -- the per-(tree, host) manager: builds the
-  state, assembles the per-layer ``node_slot`` vector, invokes the
-  engine's layer accumulation, and owns histogram-cache insertion and
-  eviction.
+  state, assembles the per-layer ``node_slot`` vector (a member-slot
+  matrix for a round-forest layer), invokes the engine's layer
+  accumulation, and owns histogram-cache insertion and eviction.
 * :class:`GuestFrontier` -- the plaintext guest mirror (numpy float64; the
   guest never enters the cipher domain for its own features).
 
@@ -112,11 +112,38 @@ class CipherFrontier:
             node_slot[node_rows[nid]] = k
         return node_slot
 
+    def layer_slots_forest(self, node_rows: dict, direct: list, k: int,
+                           stride: int):
+        """Member-batched slot assignment for one round-forest layer.
+
+        ``direct`` holds global node ids ``gid = member * stride + nid``; a
+        row can sit in at most one direct node *per member tree*, so the
+        assignment is a (n, k) matrix of member-local slots.  Returns
+        ``(slot_mat, member_local, n_local)`` where ``member_local`` maps
+        each gid to ``(member, local_slot)`` (local slots are assigned in
+        ``direct`` order within each member) and ``n_local`` is the widest
+        member's direct count -- the kernel's shared node extent.
+        """
+        slot_mat = np.full((self.bins_np.shape[0], k), -1, np.int32)
+        member_local: dict = {}
+        counts = [0] * k
+        for gid in direct:
+            m = int(gid) // stride
+            member_local[gid] = (m, counts[m])
+            slot_mat[node_rows[gid], m] = counts[m]
+            counts[m] += 1
+        return slot_mat, member_local, max(counts) if counts else 0
+
     def layer_histograms(self, node_rows: dict, direct: list,
-                         subtract: list) -> dict:
+                         subtract: list, forest: int = 0) -> dict:
         """All frontier histograms of one layer; caches the results for the
-        next layer's subtraction.  Returns {nid: (hist, counts)}."""
-        out = self.engine.layer_histograms(self, node_rows, direct, subtract)
+        next layer's subtraction.  Returns {nid: (hist, counts)}.
+
+        ``forest > 0`` selects the round-forest launch: node ids in
+        ``direct``/``subtract`` are global gids and the layer launch
+        batches over (member tree, node)."""
+        out = self.engine.layer_histograms(self, node_rows, direct, subtract,
+                                           forest=forest)
         for nid, (h, c) in out.items():
             self.store(nid, h, c)
         return out

@@ -18,8 +18,12 @@ port runs so far (dense features, one device, limb ciphers):
 
 Ciphertext batches carry a slot axis (SBT-MO packs ``n_k`` ciphertexts
 per instance): cts are (n, n_slots, L) limbs and histograms (n_f, n_b,
-n_slots, L).  The sparse zero-bin recovery, round-forests, the
-out-of-core stream and the mesh dispatch are not ported yet.
+n_slots, L).  A round-forest layer (``forest=k``) accumulates the direct
+nodes of all k member trees in ONE launch of the forest histogram kernel
+and gathers the member-major result back into ``direct`` order, so the
+lazy subtraction, the reduce and the cumsum are the same.  The sparse
+zero-bin recovery, the out-of-core stream and the mesh dispatch are not
+ported yet.
 """
 
 from __future__ import annotations
@@ -27,10 +31,16 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..kernels.histogram import (layer_ciphertext_histogram,
+from ..kernels.histogram import (forest_ciphertext_histogram,
+                                 layer_ciphertext_histogram,
                                  layer_count_histogram)
 from .binning import BinnedData
 from .he import limbs
+
+# Round-forest global node ids: gid = member * GID_STRIDE + member-local nid.
+# Host-side dicts (histogram cache, shuffle perms, split tables) key on the
+# opaque gid; k = 1 degenerates to gid == nid, i.e. the classic layer path.
+GID_STRIDE = 1 << 20
 
 
 class PlainHistogram:
@@ -101,7 +111,7 @@ class CipherHistogram:
             self.stats.n_hist_launches += 1
 
     def layer_histograms(self, frontier, node_rows: dict, direct: list,
-                         subtract: list) -> dict:
+                         subtract: list, forest: int = 0) -> dict:
         """All frontier histograms of one tree layer in one batch.
 
         frontier:  a ``core.frontier.CipherFrontier`` -- the device-resident
@@ -116,6 +126,12 @@ class CipherHistogram:
                    limb domain (``cipher.lazy_sub``) so a SINGLE
                    ``cipher.reduce`` canonicalizes direct and subtracted
                    nodes together.
+        forest:    0 for the classic layer path; k > 0 means ``direct`` /
+                   ``subtract`` hold gids of a k-member round-forest layer
+                   (``gid = member * GID_STRIDE + nid``) and a row may sit
+                   in one direct node *per member*: the accumulation runs
+                   the (tree, node)-batched kernel, then the member-major
+                   result is gathered back into ``direct`` order.
         Returns {nid: (hist, counts)}; the frontier owns cache writes.
         """
         n_f, n_b = frontier.data.n_features, self.n_bins
@@ -125,7 +141,26 @@ class CipherHistogram:
         n_d = len(direct)
         counts = np.zeros((n_d, n_f, n_b), np.int64)
         lazy = None
-        if n_d:
+        if n_d and forest:
+            slot_mat, member_local, n_local = frontier.layer_slots_forest(
+                node_rows, direct, forest, GID_STRIDE)
+            cnts_m = [np.asarray(layer_count_histogram(
+                frontier.bins_np, slot_mat[:, m], n_local, n_b)).astype(
+                    np.int64) for m in range(forest)]
+            for kk, gid in enumerate(direct):
+                m, loc = member_local[gid]
+                counts[kk] = cnts_m[m][loc]
+            lazy_f = self._forest_dispatch(frontier, slot_mat, n_local)
+            n_slots, width = frontier.state.cts.shape[1:]
+            lazy_f = lazy_f.reshape(forest, n_local, n_f, n_b, n_slots,
+                                    width)
+            # gather the member-major blocks back into ``direct`` order
+            t_idx = torch.as_tensor([member_local[gid][0] for gid in direct],
+                                    device=lazy_f.device)
+            s_idx = torch.as_tensor([member_local[gid][1] for gid in direct],
+                                    device=lazy_f.device)
+            lazy = lazy_f[t_idx, s_idx]     # (n_d, n_f, n_b, slots, width)
+        elif n_d:
             node_slot = frontier.layer_slots(node_rows, direct)
             counts = np.asarray(layer_count_histogram(
                 frontier.bins_np, node_slot, n_d, n_b)).astype(np.int64)
@@ -166,6 +201,27 @@ class CipherHistogram:
         slot_dev = torch.as_tensor(node_slot).to(flat.device)
         lazy = layer_ciphertext_histogram(state.bins, slot_dev, flat, n_d,
                                           self.n_bins)
+        self._count_launch()
+        return lazy
+
+    def _forest_dispatch(self, frontier, slot_mat: np.ndarray,
+                         n_local: int):
+        """One (tree, node)-batched accumulation launch for a round-forest
+        layer: the member axis rides through the kernel's grid.  Returns
+        (k, n_local, n_f, n_b, L) lazy limb sums.  As in
+        :meth:`_layer_dispatch`, the launch takes the real ``n_local``
+        nodes, not the JAX package's power-of-two padding; the first
+        ``n_local`` node histograms of each member are the same."""
+        state = frontier.state
+        flat = frontier.cts_flat
+        if self.stats is not None:
+            self.stats.peak_block_bytes = max(
+                self.stats.peak_block_bytes,
+                (state.bins.numel() + int(slot_mat.size)
+                 + flat.numel()) * 4)
+        slot_dev = torch.as_tensor(slot_mat).to(flat.device)
+        lazy = forest_ciphertext_histogram(state.bins, slot_dev, flat,
+                                           n_local, self.n_bins)
         self._count_launch()
         return lazy
 

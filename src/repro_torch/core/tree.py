@@ -25,9 +25,13 @@ Host-side protocol logic lives in :class:`HostRuntime`: each guest->host
 message is a payload handled by ``deliver(tag, payload)``, and each reply
 is emitted through ``channel.send`` and picked up with ``collect(tag)``.
 
-Not ported yet: round-forests (``grow_forest``), the pipelined encrypt
-pump, the chunked out-of-core encrypt, the Paillier object path, the mesh
-and the process-per-party transport.
+:func:`grow_forest` grows a round-forest, k bagged member trees in
+lockstep off ONE ``enc_gh`` broadcast, each layer still one message pair
+per host; :func:`grow_tree` is its one-member case.
+
+Not ported yet: the pipelined encrypt pump, the chunked out-of-core
+encrypt, the Paillier object path, the mesh and the process-per-party
+transport.
 """
 
 from __future__ import annotations
@@ -46,7 +50,7 @@ from . import encoding, mo_encoding
 from .binning import BinnedData
 from .frontier import CipherFrontier, GuestFrontier
 from .he import limbs
-from .histogram import CipherHistogram, PlainHistogram
+from .histogram import GID_STRIDE, CipherHistogram, PlainHistogram
 from .party import Channel, Stats, ct_wire_bytes
 from .split import (SplitCandidates, candidates_from_cumsum, decode_sid,
                     find_best_split, leaf_weight)
@@ -270,6 +274,7 @@ class HostRuntime:
         p = self.params
         t0_host = time.perf_counter()
         splittable = [int(nid) for nid in plan["splittable"]]
+        forest = int(plan.get("forest", 0))
 
         # prune the parent-histogram cache to exactly this layer's
         # subtract parents, BEFORE the empty-layer return (in-process this
@@ -294,8 +299,15 @@ class HostRuntime:
         direct, subtract = _resolve_modes(splittable, hist_mode,
                                           self.frontier,
                                           p.histogram_subtraction)
-        node_rows = {nid: np.where(node_of == nid)[0] for nid in splittable}
-        hists = self.frontier.layer_histograms(node_rows, direct, subtract)
+        if forest:
+            # round-forest plan: node_of is (n_sel, k) and node ids are gids
+            node_rows = {nid: np.where(node_of[:, nid // GID_STRIDE]
+                                       == nid)[0] for nid in splittable}
+        else:
+            node_rows = {nid: np.where(node_of == nid)[0]
+                         for nid in splittable}
+        hists = self.frontier.layer_histograms(node_rows, direct, subtract,
+                                               forest=forest)
         for nid in direct:
             self.stats.n_hom_add += int(hists[nid][1].sum()) * n_slots
         self.stats.n_hom_add += len(subtract) * n_f * n_b * n_slots
@@ -507,13 +519,45 @@ def grow_tree(ctx: TreeContext,
     assignment.  ``leaf_rows`` is train-side state consumed once by the
     boosting loop's score update — it is deliberately NOT attached to the
     :class:`FederatedTree`, so a model held for serving (or exported via
-    ``serving/export.py``) carries no row-level training residue."""
+    ``serving/export.py``) carries no row-level training residue.  This is
+    :func:`grow_forest` with one member whose bag is every selected row;
+    its plans carry no member axis, so its layers launch the layer
+    histogram kernel."""
+    return grow_forest(ctx, [np.arange(len(ctx.sel_rows))],
+                       feature_parties)[0]
+
+
+def grow_forest(ctx: TreeContext, bags: list,
+                feature_parties: Callable[[int], tuple] | None = None
+                ) -> list:
+    """Grow one round-forest: ``k = len(bags)`` bagged member trees that
+    share ONE ``enc_gh`` broadcast (FedGBF-style round bagging).
+    ``bags[m]`` holds member m's row subset as positions into
+    ``ctx.sel_rows``; bags restrict only which rows *contribute* g/h to
+    split finding — every training row still routes through every member
+    for the score update, so ``rows_all`` starts at the full set per member.
+
+    All members grow in lockstep, layer by layer.  Each layer is ONE
+    ``assign_sync`` -> ONE ``split_infos`` -> ONE batched decrypt per host:
+    for k > 1 the assignment matrix gains a member column, the histogram
+    launch batches over (member, node) through the forest kernel, and node
+    ids on the wire are globals ``gid = member * GID_STRIDE + local_nid``
+    (host dicts key on the opaque gid; the guest demuxes the hosts' split
+    tables per member at the end).  k trees cost one encrypt round-trip and
+    O(depth) protocol round trips, not O(k * depth).  With k = 1 every gid
+    is the local nid and the plans are :func:`grow_tree`'s.
+
+    Returns ``[(tree, leaf_rows), ...]`` per member, the pair
+    :func:`grow_tree` returns.
+    """
     p = ctx.params
+    k = len(bags)
+    forest = k if k > 1 else 0          # the plans' member axis, if any
     t_tree = time.perf_counter()
     if feature_parties is None:
         feature_parties = lambda d: (True, [h.hid for h in ctx.hosts])
 
-    # hoisted once per tree: g/h restricted to the selection
+    # hoisted once per round: g/h restricted to the selection
     g_sel = ctx.g[ctx.sel_rows]
     h_sel = ctx.h[ctx.sel_rows]
 
@@ -524,12 +568,20 @@ def grow_tree(ctx: TreeContext,
                                    ctx.g, ctx.h)
 
     n_all = ctx.guest_data.n_instances
-    nodes = [Node(nid=0, depth=0, n_rows=n_all)]
-    rows_all = {0: np.arange(n_all)}
-    rows_sel = {0: np.arange(len(ctx.sel_rows))}   # positions into sel arrays
-    hist_mode = {0: ("direct", -1, -1)}
+    # per-member node lists carry LOCAL nids; all protocol/guest dict state
+    # (rows, modes, caches, host tables) keys on the global gid
+    nodes = [[Node(nid=0, depth=0, n_rows=n_all)] for _ in range(k)]
+    rows_all: dict = {}
+    rows_sel: dict = {}                  # positions into the sel arrays
+    hist_mode: dict = {}
+    frontier: list = []
+    for m in range(k):
+        gid0 = m * GID_STRIDE
+        rows_all[gid0] = np.arange(n_all)
+        rows_sel[gid0] = np.asarray(bags[m])
+        hist_mode[gid0] = ("direct", -1, -1)
+        frontier.append(gid0)
 
-    frontier = [0]
     for depth in range(p.max_depth):
         use_guest, host_ids = feature_parties(depth)
         active_hosts = [h for h in ctx.hosts if h.hid in host_ids]
@@ -537,23 +589,28 @@ def grow_tree(ctx: TreeContext,
         # order: direct nodes before subtract nodes (siblings first)
         ordered = [n for n in frontier if hist_mode[n][0] == "direct"] + \
                   [n for n in frontier if hist_mode[n][0] == "subtract"]
-        # sync one assignment vector per layer to hosts that participate
+        # sync one assignment per layer to hosts that participate: one
+        # column per member, as a row sits in at most one frontier node of
+        # each member tree (one vector for a single tree)
         if active_hosts:
-            node_of = np.full(len(ctx.sel_rows), -1, np.int32)
-            for nid in frontier:
-                node_of[rows_sel[nid]] = nid
+            node_of = np.full((len(ctx.sel_rows), k), -1, np.int32)
+            for gid in frontier:
+                node_of[rows_sel[gid], gid // GID_STRIDE] = gid
+            if not forest:
+                node_of = node_of.ravel()
 
         # triage: nodes too small to split become leaves immediately; the
         # rest form this layer's batch
         splittable = []
-        for nid in ordered:
-            rs = rows_sel[nid]
+        for gid in ordered:
+            rs = rows_sel[gid]
             if len(rs) < 2 * p.min_leaf or len(rs) == 0:
-                nodes[nid].weight = leaf_weight(
-                    pairwise_sum(g_sel[rs]), pairwise_sum(h_sel[rs]),
-                    p.lam, p.learning_rate)
+                nodes[gid // GID_STRIDE][gid % GID_STRIDE].weight = \
+                    leaf_weight(pairwise_sum(g_sel[rs]),
+                                pairwise_sum(h_sel[rs]), p.lam,
+                                p.learning_rate)
             else:
-                splittable.append(nid)
+                splittable.append(gid)
 
         # one candidate batch per party for the whole layer: ONE
         # assign_sync plan per host, answered by ONE split_infos message.
@@ -567,8 +624,10 @@ def grow_tree(ctx: TreeContext,
             plan = {"tree": int(ctx.tree_idx),
                     "node_of": node_of,
                     "splittable": list(splittable),
-                    "modes": [(nid,) + tuple(hist_mode[nid])
-                              for nid in splittable]}
+                    "modes": [(gid,) + tuple(hist_mode[gid])
+                              for gid in splittable]}
+            if forest:
+                plan["forest"] = forest
             for h in active_hosts:
                 ctx.channel.send("guest", f"host{h.hid}", wire.ASSIGN_SYNC,
                                  plan, node_of.size * 4)
@@ -605,17 +664,18 @@ def grow_tree(ctx: TreeContext,
                 tr.complete("layer", int(t0 * 1e9), int((t3 - t0) * 1e9),
                             nodes=len(splittable), **tkw)
 
-        for nid in splittable:
-            node = nodes[nid]
-            rs = rows_sel[nid]
+        for gid in splittable:
+            m = gid // GID_STRIDE
+            node = nodes[m][gid % GID_STRIDE]
+            rs = rows_sel[gid]
             G_tot = pairwise_sum(g_sel[rs])
             H_tot = pairwise_sum(h_sel[rs])
 
             cands = []
-            if nid in guest_cands:
-                cands.append(guest_cands[nid])
+            if gid in guest_cands:
+                cands.append(guest_cands[gid])
             for h in active_hosts:
-                cands.append(host_cands[h.hid][nid])
+                cands.append(host_cands[h.hid][gid])
 
             best = find_best_split(cands, G_tot, H_tot, len(rs), p.lam,
                                    p.min_leaf, p.min_gain)
@@ -624,7 +684,7 @@ def grow_tree(ctx: TreeContext,
                 continue
 
             # resolve the split owner + instance assignment
-            ra = rows_all[nid]
+            ra = rows_all[gid]
             fsel = ctx.sel_rows[rs]                 # full ids of selected rows
             if best.party == GUEST:
                 fid, bid = decode_sid(best.sid, p.n_bins)
@@ -638,7 +698,7 @@ def grow_tree(ctx: TreeContext,
                 # selected-row mask is derived guest-side — fsel is always
                 # a subset of the ascending ra, so no second message
                 host = next(h for h in ctx.hosts if h.hid == best.party)
-                msg = {"nid": nid, "sid": best.sid, "rows": ra}
+                msg = {"nid": gid, "sid": best.sid, "rows": ra}
                 ctx.channel.send("guest", f"host{host.hid}", wire.CHOSEN_SID,
                                  msg, 8 + 4 * len(ra))
                 host.deliver(wire.CHOSEN_SID, msg)
@@ -647,20 +707,23 @@ def grow_tree(ctx: TreeContext,
                 node.party, node.sid = host.hid, best.sid
             node.gain = best.gain
 
-            lid, rid = len(nodes), len(nodes) + 1
+            lid, rid = len(nodes[m]), len(nodes[m]) + 1
+            gl, gr = m * GID_STRIDE + lid, m * GID_STRIDE + rid
             node.left, node.right = lid, rid
-            rows_all[lid], rows_all[rid] = ra[go_left], ra[~go_left]
-            rows_sel[lid], rows_sel[rid] = rs[go_left_sel], rs[~go_left_sel]
-            nodes.append(Node(nid=lid, depth=depth + 1, n_rows=len(rows_all[lid])))
-            nodes.append(Node(nid=rid, depth=depth + 1, n_rows=len(rows_all[rid])))
+            rows_all[gl], rows_all[gr] = ra[go_left], ra[~go_left]
+            rows_sel[gl], rows_sel[gr] = rs[go_left_sel], rs[~go_left_sel]
+            nodes[m].append(Node(nid=lid, depth=depth + 1,
+                                 n_rows=len(rows_all[gl])))
+            nodes[m].append(Node(nid=rid, depth=depth + 1,
+                                 n_rows=len(rows_all[gr])))
             # subtraction schedule: smaller child direct, sibling subtracts
-            if len(rows_sel[lid]) <= len(rows_sel[rid]):
-                hist_mode[lid] = ("direct", -1, -1)
-                hist_mode[rid] = ("subtract", nid, lid)
+            if len(rows_sel[gl]) <= len(rows_sel[gr]):
+                hist_mode[gl] = ("direct", -1, -1)
+                hist_mode[gr] = ("subtract", gid, gl)
             else:
-                hist_mode[rid] = ("direct", -1, -1)
-                hist_mode[lid] = ("subtract", nid, rid)
-            next_frontier += [lid, rid]
+                hist_mode[gr] = ("direct", -1, -1)
+                hist_mode[gl] = ("subtract", gid, gr)
+            next_frontier += [gl, gr]
         # free cached histograms: keep ONLY the parents the next layer's
         # subtract-mode nodes will read
         keep = ({hist_mode[c][1] for c in next_frontier
@@ -675,24 +738,33 @@ def grow_tree(ctx: TreeContext,
         ctx.stats.peak_frontier = max(ctx.stats.peak_frontier, len(frontier))
         frontier = next_frontier
 
-    # finalize leaves at max depth
-    for node in nodes:
-        if node.left == -1 and node.weight is None:
-            rs = rows_sel[node.nid]
-            node.weight = leaf_weight(pairwise_sum(g_sel[rs]),
-                                      pairwise_sum(h_sel[rs]),
-                                      p.lam, p.learning_rate)
-
-    # leaf row assignment for the score update (returned alongside, never
-    # retained on the model: the tree must stay free of row-level state)
-    leaf_rows = {n.nid: rows_all[n.nid] for n in nodes if n.left == -1}
-    tree = FederatedTree(nodes=nodes,
-                         host_tables=[h.table for h in ctx.hosts])
+    # finalize: leaves at max depth, and the hosts' split tables demuxed
+    # per member (gid -> local nid).  Leaf row assignments for the score
+    # update are returned alongside, never retained on the model: a tree
+    # must stay free of row-level state.
+    tables_by_member = [[{} for _ in ctx.hosts] for _ in range(k)]
+    for j, h in enumerate(ctx.hosts):
+        for gid, fb in h.table.items():
+            mm, loc = divmod(int(gid), GID_STRIDE)
+            tables_by_member[mm][j][loc] = fb
+    out = []
+    for m in range(k):
+        for node in nodes[m]:
+            if node.left == -1 and node.weight is None:
+                rs = rows_sel[m * GID_STRIDE + node.nid]
+                node.weight = leaf_weight(pairwise_sum(g_sel[rs]),
+                                          pairwise_sum(h_sel[rs]),
+                                          p.lam, p.learning_rate)
+        leaf_rows = {nd.nid: rows_all[m * GID_STRIDE + nd.nid]
+                     for nd in nodes[m] if nd.left == -1}
+        out.append((FederatedTree(nodes=nodes[m],
+                                  host_tables=tables_by_member[m]),
+                    leaf_rows))
     ctx.channel.tracer.complete(
         "tree", int(t_tree * 1e9),
         int((time.perf_counter() - t_tree) * 1e9),
-        tree=int(ctx.tree_idx), n_nodes=len(nodes))
-    return tree, leaf_rows
+        tree=int(ctx.tree_idx), n_nodes=sum(len(nm) for nm in nodes))
+    return out
 
 
 def predict_tree(tree: FederatedTree, guest_bins: np.ndarray,

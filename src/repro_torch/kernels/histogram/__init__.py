@@ -1,3 +1,3 @@
-from .ops import (layer_ciphertext_histogram,  # noqa: F401
-                  layer_count_histogram)
-from .ref import layer_hist_ref  # noqa: F401
+from .ops import (forest_ciphertext_histogram,  # noqa: F401
+                  layer_ciphertext_histogram, layer_count_histogram)
+from .ref import forest_hist_ref, layer_hist_ref  # noqa: F401

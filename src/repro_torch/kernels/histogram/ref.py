@@ -33,3 +33,18 @@ def layer_hist_ref(bins: torch.Tensor, node_slot: torch.Tensor,
         idx = (slot * n_f + f) * n_bins + b
         out.index_add_(0, idx[ok], cts[ok])
     return out.view(n_nodes, n_f, n_bins, W)
+
+
+def forest_hist_ref(bins: torch.Tensor, node_slot: torch.Tensor,
+                    cts: torch.Tensor, n_nodes: int,
+                    n_bins: int) -> torch.Tensor:
+    """(tree, node)-batched ciphertext histogram (one round-forest layer).
+
+    node_slot: (n_i, k) int32 member-local slots, one column per member
+    tree of the round (negative: the row is in no direct node of that
+    member).  Returns (k, n_nodes, n_f, n_bins, W) int32 lazy sums: for
+    each member column, :func:`layer_hist_ref`'s exact int32 scatter-adds
+    (the JAX reference's fp32 einsum is exact only below 2**24)."""
+    return torch.stack([layer_hist_ref(bins, node_slot[:, t], cts, n_nodes,
+                                       n_bins)
+                        for t in range(node_slot.shape[1])])

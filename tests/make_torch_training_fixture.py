@@ -37,17 +37,21 @@ write (default: all):
 
     PYTHONPATH=src python tests/make_torch_training_fixture.py \\
         [train_scale_plain] [train_two_hosts_plain] \\
-        [train_scale_affine] [train_two_hosts_affine]
+        [train_scale_affine] [train_two_hosts_affine] \\
+        [train_forest4_affine] [train_two_hosts_forest]
 """
 
 from __future__ import annotations
 
+import contextlib
+import hashlib
 import json
 import os
 import sys
 
 import numpy as np
 
+import repro.core.boosting as jax_boosting
 from repro.core import SBTParams, VerticalBoosting
 from repro.data import synthetic_tabular
 
@@ -68,6 +72,14 @@ FIXTURE_RUNS = {
         dict(n=400, d=6, seed=0, bounds=[0, 2, 4, 6]),
         dict(n_trees=3, max_depth=3, n_bins=16, cipher="affine",
              key_bits=256, precision=20)),
+    "train_forest4_affine": (
+        dict(n=65536, d=16, seed=0, bounds=[0, 2, 16]),
+        dict(n_trees=2, max_depth=4, n_bins=32, seed=1, cipher="affine",
+             key_bits=512, precision=24, forest_size=4)),
+    "train_two_hosts_forest": (
+        dict(n=400, d=6, seed=0, bounds=[0, 2, 4, 6]),
+        dict(n_trees=2, max_depth=3, n_bins=16, seed=11, cipher="plain",
+             forest_size=3)),
 }
 
 
@@ -89,13 +101,38 @@ def int_stats(stats) -> dict:
             if isinstance(v, int) and not isinstance(v, bool)}
 
 
+def bags_digest(bags) -> str:
+    """sha256 of one round's member bags (row positions), as int64."""
+    return hashlib.sha256(np.stack([np.asarray(b, np.int64)
+                                    for b in bags]).tobytes()).hexdigest()
+
+
+@contextlib.contextmanager
+def recorded_bags():
+    """The digest of every round's bags the JAX grower is handed, in
+    order, while the context is open."""
+    digests = []
+    grow = jax_boosting.grow_forest
+
+    def spy(ctx, bags, *a, **k):
+        digests.append(bags_digest(bags))
+        return grow(ctx, bags, *a, **k)
+
+    jax_boosting.grow_forest = spy
+    try:
+        yield digests
+    finally:
+        jax_boosting.grow_forest = grow
+
+
 def fit_reference(name: str):
     """The JAX package's fit of one fixture run: (reference dict,
     training-row scores)."""
     data, params = FIXTURE_RUNS[name]
     X, y = synthetic_tabular(data["n"], data["d"], seed=data["seed"])
     Xg, Xh = split(X, data["bounds"])
-    model = VerticalBoosting(SBTParams(**params)).fit(Xg, y, Xh)
+    with recorded_bags() as bags:
+        model = VerticalBoosting(SBTParams(**params)).fit(Xg, y, Xh)
     fit_summary = model.channel.summary()
     stats = int_stats(model.stats)
     scores = model.predict_score(Xg, Xh)
@@ -103,6 +140,8 @@ def fit_reference(name: str):
                signatures=[signature_json(t) for t in model.trees],
                summary_fit=fit_summary,
                summary_predict=model.channel.summary(), stats=stats)
+    if params.get("forest_size", 1) > 1:
+        ref["bags_sha256"] = bags
     return ref, np.asarray(scores, np.float64)
 
 
@@ -119,6 +158,11 @@ def write(name: str) -> None:
 
 
 def main(names):
+    # the references pin numpy 2.0's float64 sum order (the port's
+    # core/sums.py writes that order out)
+    if not np.__version__.startswith("2.0."):
+        sys.exit(f"numpy {np.__version__}: the references are made on "
+                 f"numpy 2.0")
     for name in names or FIXTURE_RUNS:
         write(name)
 

@@ -243,7 +243,8 @@ UNPORTED = {
     "goss": dict(goss=True),
     "sparse": dict(sparse=True),
     "pipeline": dict(pipeline=True),
-    "forest_size": dict(forest_size=2),
+    # round-forests run, but not with GOSS's shared selection yet
+    "forest_goss": dict(goss=True, forest_size=2),
     "mesh": dict(mesh=object()),
     "row_block": dict(row_block=128),
 }
@@ -285,7 +286,7 @@ def test_affine_trained_model_serves_like_predict_tree():
 # tuning knobs of the modes above: the port takes each one only together
 # with the code that reads it, so none is accepted and then ignored
 UNREAD = ("top_rate", "other_rate", "guest_depth", "host_depth",
-          "trees_per_party", "forest_subsample")
+          "trees_per_party")
 
 
 @pytest.mark.parametrize("field", UNREAD)

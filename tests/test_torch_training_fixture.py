@@ -3,13 +3,14 @@ to, checked on the CPU.
 
 ``src/repro_torch/fixtures/train_*`` were written by
 ``tests/make_torch_training_fixture.py`` from JAX fits, with the plain and
-the affine cipher.  Each reference records the run its maker defines; the
-small two-host references must still be what the JAX package fits now;
-and every reference (the two-host cases and the 65,536-row scale shape)
-must be what the port fits on the CPU, through the same comparison
-``chip_smoke.py`` makes on the card: tree signatures, scores over the
-training rows, ``channel.summary()`` after the fit and after scoring, and
-the integer ``Stats`` counters, all equal.
+the affine cipher, one tree or a round-forest a round.  Each reference
+records the run its maker defines; the small two-host references must
+still be what the JAX package fits now; and every reference (the two-host
+cases and the 65,536-row scale shapes) must be what the port fits on the
+CPU, through the same comparison ``chip_smoke.py`` makes on the card: tree
+signatures, scores over the training rows, ``channel.summary()`` after the
+fit and after scoring, the integer ``Stats`` counters and, for a
+round-forest, each round's member bags, all equal.
 """
 
 import os
@@ -29,7 +30,8 @@ torch.set_num_threads(2)
 
 
 ALL = (chip_smoke.TRAIN_TWO_HOSTS, chip_smoke.TRAIN_SCALE,
-       chip_smoke.TRAIN_TWO_HOSTS_AFFINE, chip_smoke.TRAIN_SCALE_AFFINE)
+       chip_smoke.TRAIN_TWO_HOSTS_AFFINE, chip_smoke.TRAIN_SCALE_AFFINE,
+       chip_smoke.TRAIN_TWO_HOSTS_FOREST, chip_smoke.TRAIN_FOREST4)
 
 
 def _assert_reference_is_the_jax_fit(name):
@@ -51,12 +53,24 @@ def test_affine_two_host_reference_is_the_jax_fit():
     _assert_reference_is_the_jax_fit(chip_smoke.TRAIN_TWO_HOSTS_AFFINE)
 
 
+def test_forest_two_host_reference_is_the_jax_fit():
+    _assert_reference_is_the_jax_fit(chip_smoke.TRAIN_TWO_HOSTS_FOREST)
+
+
 @pytest.mark.parametrize("name", ALL)
 def test_reference_records_the_makers_run(name):
     ref, _ = chip_smoke.training_reference(name)
     data, params = FIXTURE_RUNS[name]
     assert (ref["data"], ref["params"]) == (data, params)
-    assert ref["params"]["cipher"] == name.split("_")[-1]
+    # the name says the cipher, or the forest width of a plain run
+    named = name.split("_")[-1]
+    cipher = "plain" if named == "forest" else named
+    assert ref["params"]["cipher"] == cipher
+    forest = "forest" in name
+    assert (ref["params"].get("forest_size", 1) > 1) == forest
+    assert ("bags_sha256" in ref) == forest
+    if forest:
+        assert len(ref["bags_sha256"]) == ref["params"]["n_trees"]
 
 
 @pytest.mark.parametrize("name", ALL)
@@ -82,3 +96,17 @@ def test_compare_training_reports_each_difference():
     assert len(bad) == 4
     assert "2 trees" in bad[0] and "ledger after fit" in bad[1]
     assert "n_hist_launches" in bad[2] and "at 1 rows" in bad[3]
+
+
+def test_compare_training_holds_forest_bags():
+    """A round-forest reference's bag digests are compared on their own, so
+    a card fit that differs tells the sampler apart from the histograms."""
+    ref, scores = chip_smoke.training_reference(
+        chip_smoke.TRAIN_TWO_HOSTS_FOREST)
+    bags = list(ref["bags_sha256"])
+    args = (ref, scores, [], ref["summary_fit"], ref["stats"], scores,
+            ref["summary_predict"])
+    assert not any("bags" in b for b in
+                   chip_smoke.compare_training(*args, bags=bags))
+    bad = chip_smoke.compare_training(*args, bags=bags[::-1])
+    assert "member bags differ" in bad[0]
