@@ -45,59 +45,77 @@ Phases, each fatal on failure (nothing is caught and carried on):
    two limb tiles, a node-tiled case, one row); at k = 1 it must equal K1.
    Times beside its bound, its plain version and one ``index_add_`` over
    the member-expanded composite index (a yardstick the port never calls).
-7. Serving phase (the serving path): loads the committed JAX export
+7. Node histogram kernel (K5, the same CUDA body as K1 with one node and
+   no slot vector): against its plain version, ``torch.equal``, at the
+   per-node engine's shapes (the root and the left child of phase 8) and
+   on edge inputs (all rows masked, bins past ``n_bins``, one row, row
+   counts off the 256-row chunk, one feature, W = 33, 130 and 515, 1 and
+   256 bins); a bin count past its shared memory must raise.  Times
+   beside its bound, its plain version and one ``index_add_`` over the
+   pre-expanded (feature, bin) index (a yardstick the port never calls).
+8. Per-node engine (its path): ``CipherHistogram.node_histogram`` at the
+   scale shape (65,536 rows of ``synthetic_tabular(65536, 16, seed=0)``,
+   the host's 14 features binned on the card at 32 bins, the affine
+   cipher of ``train_scale_affine``, 65,536 random 40-bit plaintexts):
+   the root and the left child (feature 0's bin < 16) by K5 and the right
+   child by ``subtract`` must equal the layer engine's (K1) histograms
+   and counts; the right child's cells decrypt to the plaintext sums;
+   K5's launch count, zeroed just before, must be at least 2.  Prints the
+   engine's wall ms per call and each stage's (counts, gather and pad,
+   K5, reduce).
+9. Serving phase (the serving path): loads the committed JAX export
    ``src/repro_torch/fixtures/serving_t25_d6`` with ``load_ensemble`` on
    the card and serves it with ``FederatedPredictor``: the 65536-row
    reference batch, whose scores must equal the JAX package's committed
    scores bit for bit, four more 65536-row batches and one 1,048,576-row
    batch.  Kernel launch counts are zeroed just before and read just
    after; every kernel of the path must have launched.
-8. Branches: the two small committed JAX exports under
-   ``fixtures/serving_branches`` (multiclass with two hosts, and
-   multi-output leaves) served on the card, scores bit-identical to the
-   JAX package's, so every branch of the score accumulation is held.
-9. Training phase (the training path): ``VerticalBoosting`` with the
-   plain cipher trains the scale shape of ``benchmarks/bench_tree_build.py``
-   (65,536 rows, 2 guest and 14 host features, 3 trees of depth 4, 32
-   bins) on the card and scores the training rows; launch counts are
-   zeroed just before and read just after, and both kernels must have
-   launched.  Tree signatures, scores, ``channel.summary()`` after the
-   fit and after scoring, and the integer ``Stats`` counters must equal
-   the JAX package's committed reference
-   (``fixtures/train_scale_plain``); the trained model is also served
-   through a fresh ``FederatedPredictor`` against the same scores.  Then
-   seconds per tree (the first apart, as warm-up), the device's idle
-   share (device busy time under ``torch.profiler`` over the untraced wall
-   time of the same boosting rounds, run just before; this phase profiles
-   the first round only), ``carry_fix``
-   and ``borrow_fix`` iterations (one sync each), and device time by stage
-   (bins, K1, the layer reduce, the cumsum, compress, decrypt and decode;
-   each run of the port's own kernels in the profile is added to the
-   stages its launch was made in).
-10. Two hosts: the small two-host case of ``tests/test_gbdt.py`` trained
-   on the card, equal to its committed reference
-   (``fixtures/train_two_hosts_plain``).
-11. Affine training: phase 9 again with ``cipher="affine"`` (1024-bit
+10. Branches: the two small committed JAX exports under
+    ``fixtures/serving_branches`` (multiclass with two hosts, and
+    multi-output leaves) served on the card, scores bit-identical to the
+    JAX package's, so every branch of the score accumulation is held.
+11. Training phase (the training path): ``VerticalBoosting`` with the
+    plain cipher trains the scale shape of ``benchmarks/bench_tree_build.py``
+    (65,536 rows, 2 guest and 14 host features, 3 trees of depth 4, 32
+    bins) on the card and scores the training rows; launch counts are
+    zeroed just before and read just after, and both kernels must have
+    launched.  Tree signatures, scores, ``channel.summary()`` after the
+    fit and after scoring, and the integer ``Stats`` counters must equal
+    the JAX package's committed reference
+    (``fixtures/train_scale_plain``); the trained model is also served
+    through a fresh ``FederatedPredictor`` against the same scores.  Then
+    seconds per tree (the first apart, as warm-up), the device's idle
+    share (device busy time under ``torch.profiler`` over the untraced wall
+    time of the same boosting rounds, run just before; this phase profiles
+    the first round only), ``carry_fix``
+    and ``borrow_fix`` iterations (one sync each), and device time by stage
+    (bins, K1, the layer reduce, the cumsum, compress, decrypt and decode;
+    each run of the port's own kernels in the profile is added to the
+    stages its launch was made in).
+12. Two hosts: the small two-host case of ``tests/test_gbdt.py`` trained
+    on the card, equal to its committed reference
+    (``fixtures/train_two_hosts_plain``).
+13. Affine training: phase 11 again with ``cipher="affine"`` (1024-bit
     key, ``fixtures/train_scale_affine``), where all three kernels must
     have launched, with the modmul stages beside the others
-    (encrypt-modmul, Barrett-in-reduce, decrypt-modmul); then phase 10 with
+    (encrypt-modmul, Barrett-in-reduce, decrypt-modmul); then phase 12 with
     the affine two-host case (``fixtures/train_two_hosts_affine``:
     ``key_bits=256``, ``precision=20``).
-12. Forest training: phase 9 with ``forest_size=4`` (the ``forest4`` row
+14. Forest training: phase 11 with ``forest_size=4`` (the ``forest4`` row
     of ``benchmarks/bench_tree_build.py`` without pipelining:
     ``fixtures/train_forest4_affine``, 2 rounds of 4 member trees, 512-bit
     key), where K4 must launch 8 times (2 rounds x 4 layers) and K1 gives
     way to it in the stages; each round's member bags are held to the
     reference's sha256 as well; then the two-host forest
     (``fixtures/train_two_hosts_forest``: plain cipher, 3 members a round).
-    This phase and phase 9 profile one round, phase 11 all of its rounds.
-13. Serving throughput, latency and profile (after the counted runs):
-   windows of back-to-back batches (100 of 65536 rows, 8 of 1,048,576),
-   rows/s as all rows over the window's time, p50/p90 per batch; then a
-   window of batches of each size untraced and again under
-   ``torch.profiler``, for device time by kernel and the device's idle
-   share of the untraced wall time.
-14. Prints the seconds each phase took, the kernels' JSON line, the card
+    This phase and phase 11 profile one round, phase 13 all of its rounds.
+15. Serving throughput, latency and profile (after the counted runs):
+    windows of back-to-back batches (100 of 65536 rows, 8 of 1,048,576),
+    rows/s as all rows over the window's time, p50/p90 per batch; then a
+    window of batches of each size untraced and again under
+    ``torch.profiler``, for device time by kernel and the device's idle
+    share of the untraced wall time.
+16. Prints the seconds each phase took, the kernels' JSON line, the card
     line, and last the device line.
 
 With ``--json PATH`` every number, the build log and the per-kernel
@@ -348,19 +366,23 @@ def branch_phase(torch, dev) -> list:
 
 
 def hist_bound(bins, slot, W: int, n_nodes: int, n_bins: int) -> tuple:
-    """Least time for the layer (slot (n_i,)) or forest (slot (n_i, k))
-    histogram on these inputs: every slot read, the bins and limbs of the
-    rows that lie in a node of some member read once, the k histograms
-    written once; or one 32-bit add per (counted row, member, feature,
-    limb) -- whichever is longer."""
+    """Least time for the layer (slot (n_i,)), forest (slot (n_i, k)) or
+    node (slot None: every row in the one node, no slot read) histogram on
+    these inputs: every slot read, the bins and limbs of the rows that lie
+    in a node of some member read once, the k histograms written once; or
+    one 32-bit add per (counted row, member, feature, limb) -- whichever
+    is longer."""
     n_i, n_f = bins.shape
+    slot_words = 0 if slot is None else slot.numel()
+    if slot is None:
+        slot = bins.new_zeros(n_i)
     slot = slot.reshape(n_i, -1)
     k = slot.shape[1]
     in_node = (slot >= 0) & (slot < n_nodes)                  # (n_i, k)
     rows = int(in_node.any(dim=1).sum())
     bins_ok = ((bins >= 0) & (bins < n_bins)).sum(dim=1)      # (n_i,)
     pairs = int((bins_ok * in_node.sum(dim=1)).sum())
-    nbytes = 4 * (n_i * k + rows * (n_f + W)
+    nbytes = 4 * (slot_words + rows * (n_f + W)
                   + k * n_nodes * n_f * n_bins * W)
     t_bytes = nbytes / HBM_BYTES_PER_S
     t_ops = pairs * W / FP32_OPS_PER_S
@@ -588,6 +610,224 @@ def forest_hist_phase(torch, dev) -> list:
     print("kernel forest_hist edge 'k = 1': equal to its plain version and "
           "to layer_hist", flush=True)
     return rows
+
+
+def node_engine_inputs(torch, dev):
+    """The per-node engine phase's inputs, on the card: the scale shape's
+    rows (``synthetic_tabular(65536, 16, seed=0)``), the host's 14 features
+    binned at 32 bins; the affine cipher of ``train_scale_affine`` (1024-bit
+    key from seed 1, W = 131 limbs at histogram width); 65,536 random
+    40-bit plaintexts, encrypted, (n, 1, Ln); and the nodes: the root, the
+    left child (feature 0's bin < 16) and the right child."""
+    import types
+
+    from repro_torch.core.binning import bin_features
+    from repro_torch.core.he import get_cipher
+    from repro_torch.data import synthetic_tabular
+    X, _ = synthetic_tabular(65536, 16, seed=0)
+    data = bin_features(X[:, 2:], 32, device=dev)
+    cipher = get_cipher("affine", key_bits=1024, seed=1)
+    pts = np.random.default_rng(18).integers(0, 1 << 40, X.shape[0])
+    cts = cipher.encrypt_ints([int(v) for v in pts], device=dev)
+    left = data.bins[:, 0] < 16
+    return types.SimpleNamespace(
+        data=data, cipher=cipher, pts=pts, cts=cts.reshape(len(pts), 1, -1),
+        nodes={"root": np.arange(len(pts)), "left": np.flatnonzero(left),
+               "right": np.flatnonzero(~left)})
+
+
+def node_rows_on_card(torch, dev, inp, rows):
+    """One node's kernel operands as the engine makes them: its bins and
+    its limbs padded to histogram width, flat, on the card."""
+    from repro_torch.core.he import limbs
+    idx = torch.as_tensor(rows, device=dev)
+    bins = torch.as_tensor(inp.data.bins[rows], device=dev)
+    cts = limbs.pad_limbs(inp.cts[idx], inp.cipher.hist_width)
+    return bins, cts.reshape(len(rows), -1).contiguous()
+
+
+def k5_inputs(torch, dev, n_i, n_f, n_bins, W, seed, lo=0, hi=None,
+              bin_mask=0.0):
+    """Random bins in [lo, hi) (default [0, n_bins)) and canonical limbs
+    on the card, with the given share of the bins set to -1."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    kw = dict(generator=g, device=dev, dtype=torch.int32)
+    bins = torch.randint(lo, n_bins if hi is None else hi, (n_i, n_f), **kw)
+    cts = torch.randint(0, 256, (n_i, W), **kw)
+    bins[torch.rand((n_i, n_f), generator=g, device=dev) < bin_mask] = -1
+    return bins, cts
+
+
+# node histogram edge inputs: name, n_i, n_f, n_bins, W, bins' range
+# (None: [0, n_bins)), masked share
+K5_EDGES = [
+    ("all rows masked", 65536, 14, 32, 131, None, 1.0),
+    ("bins >= n_bins", 4099, 14, 32, 131, (-3, 40), 0.0),
+    ("one row", 1, 14, 32, 131, None, 0.0),
+    ("rows off the 256-row chunk", 65537, 14, 32, 131, None, 0.1),
+    ("few rows off the chunk", 1000, 14, 32, 131, None, 0.1),
+    ("n_f = 1", 4096, 1, 32, 131, None, 0.1),
+    ("W = 33", 300, 17, 32, 33, None, 0.15),
+    ("W = 130", 257, 9, 16, 130, None, 0.15),
+    ("W = 515 (4096-bit plain key, the limb axis tiles)", 65536, 14, 32, 515,
+     None, 0.1),
+    ("n_bins = 1", 4096, 14, 1, 131, None, 0.1),
+    ("n_bins = 256", 65536, 14, 256, 131, None, 0.1),
+]
+
+
+def node_hist_phase(torch, dev, inp) -> list:
+    """K5 against its plain version, ``torch.equal``, at the per-node
+    engine's shapes (the root and the left child of ``inp``: 14 features,
+    32 bins, W = 131) and on edge inputs; timed at those shapes beside its
+    bound, its plain version and one ``index_add_`` over the pre-expanded
+    (feature, bin) index (a yardstick the port never calls)."""
+    from repro_torch.kernels.histogram import hist_ref
+    from repro_torch.kernels.histogram.histogram import hist_cuda
+    n_bins = 32
+    rows = []
+    for node in ("root", "left"):
+        bins, cts = node_rows_on_card(torch, dev, inp, inp.nodes[node])
+        (n_i, n_f), W = bins.shape, cts.shape[1]
+        out = hist_cuda(bins, cts, n_bins)
+        ref = hist_ref(bins, cts, n_bins)
+        torch.cuda.synchronize()
+        if not torch.equal(out, ref):
+            fail(f"node_hist kernel != plain at the {node} ({n_i} rows): "
+                 f"{int((out != ref).sum())} sums differ")
+        err = int((out.long() - ref.long()).abs().max())
+        ok = (bins >= 0) & (bins < n_bins)
+        idx = (torch.arange(n_f, device=dev) * n_bins + bins.long())[ok]
+        src = cts.unsqueeze(1).expand(n_i, n_f, W)[ok].contiguous()
+        lib_out = torch.zeros((n_f * n_bins, W), dtype=torch.int32,
+                              device=dev)
+        lib_out.index_add_(0, idx, src)
+        if not torch.equal(lib_out.view_as(ref), ref):
+            fail(f"the index_add_ yardstick disagrees at the {node}")
+        ms = time_ms(torch, lambda: hist_cuda(bins, cts, n_bins))
+        plain_ms = time_ms(torch, lambda: hist_ref(bins, cts, n_bins),
+                           reps=5)
+        lib_ms = time_ms(torch, lambda: lib_out.index_add_(0, idx, src))
+        bound_ms, bound_by = hist_bound(bins, None, W, 1, n_bins)
+        del idx, src, lib_out
+        rows.append(dict(node=node, shape=[n_i, n_f, n_bins, W],
+                         max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                         library_ms=lib_ms, bound_ms=bound_ms,
+                         bound_by=bound_by))
+        print(f"kernel node_hist {node} {n_i}x{n_f}x{n_bins}x{W}: equal, "
+              f"ms={ms:.5f} plain_ms={plain_ms:.5f} library_ms={lib_ms:.5f} "
+              f"bound_ms={bound_ms:.5f} ({bound_by})", flush=True)
+    for name, n_i, n_f, nb, W, span, mask in K5_EDGES:
+        lo, hi = span if span else (0, None)
+        bins, cts = k5_inputs(torch, dev, n_i, n_f, nb, W, seed=n_i + W,
+                              lo=lo, hi=hi, bin_mask=mask)
+        out = hist_cuda(bins, cts, nb)
+        ref = hist_ref(bins, cts, nb)
+        torch.cuda.synchronize()
+        if not torch.equal(out, ref):
+            fail(f"node_hist kernel != plain on edge input '{name}'")
+        print(f"kernel node_hist edge '{name}' ({n_i}x{n_f}x{nb}x{W}): "
+              f"equal", flush=True)
+    try:
+        hist_cuda(bins[:8, :1].contiguous(), cts[:8, :1].contiguous(), 20000)
+    except RuntimeError:
+        print("kernel node_hist refuses 20000 bins (past its shared memory)",
+              flush=True)
+    else:
+        fail("node_hist took a bin count past its shared memory")
+    return rows
+
+
+def node_engine_phase(torch, dev, inp) -> dict:
+    """The per-node engine at full width: ``CipherHistogram.node_histogram``
+    (K5) for the root and the left child and ``subtract`` for the right
+    child must equal what the layer engine (K1, through ``CipherFrontier``)
+    gives for the same nodes; the right child's cells, decrypted, must
+    equal the plaintext sums; K5's launch count, zeroed just before the
+    counted calls, must be at least 2.  Then the engine's wall ms per
+    ``node_histogram`` call and per stage of it."""
+    from repro_torch.core.frontier import CipherFrontier
+    from repro_torch.core.histogram import CipherHistogram
+    from repro_torch.core.party import Stats
+    from repro_torch.kernels.histogram import ciphertext_histogram
+    data, cts, nodes = inp.data, inp.cts, inp.nodes
+    engine = CipherHistogram(inp.cipher, 32, stats=Stats())
+    frontier = CipherFrontier(engine, data, cts)
+    k1 = frontier.layer_histograms({0: nodes["root"]}, [0], [])
+    k1.update(frontier.layer_histograms(
+        {1: nodes["left"], 2: nodes["right"]}, direct=[1],
+        subtract=[(2, 0, 1)]))
+
+    # the counted run: K5's count zeroed just before, read just after
+    ciphertext_histogram.launches = 0
+    n_stats = engine.stats.n_hist_launches
+    root = engine.node_histogram(data, cts, nodes["root"])
+    left = engine.node_histogram(data, cts, nodes["left"])
+    right = engine.subtract(root, left)
+    torch.cuda.synchronize()
+    launches = ciphertext_histogram.launches
+    if launches < 2 or launches != engine.stats.n_hist_launches - n_stats:
+        fail(f"{launches} node_hist launches over 2 node_histogram calls "
+             f"(Stats counts {engine.stats.n_hist_launches - n_stats})")
+    for nid, node, (hist, cnt) in ((0, "root", root), (1, "left", left),
+                                   (2, "right", right)):
+        if not (torch.equal(hist, k1[nid][0])
+                and np.array_equal(cnt, k1[nid][1])):
+            fail(f"the per-node engine's {node} ({len(nodes[node])} rows) "
+                 f"!= the layer engine's")
+    # the right child's cells, decrypted, against the plaintext sums
+    rows = nodes["right"]
+    n_f, n_b = right[1].shape
+    want = np.zeros((n_f, n_b), np.int64)
+    for f in range(n_f):
+        np.add.at(want[f], data.bins[rows, f], inp.pts[rows])
+    got = inp.cipher.decrypt_to_ints(right[0].reshape(n_f * n_b, -1))
+    if got != [int(v) for v in want.ravel()]:
+        fail("the right child's decrypted cells != the plaintext sums")
+
+    def wall_ms(fn, reps=5):
+        ts = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            ts.append((time.perf_counter() - t0) * 1e3)
+        return float(np.median(ts))
+
+    def stages_ms(rows):
+        """The call's stages, each timed alone as the engine runs it: the
+        host's bin gather and counts, the limbs' gather and pad with the
+        bins' copy to the card, the K5 wrapper, and the reduce."""
+        from repro_torch.kernels.histogram import count_histogram
+        k_bins, k_cts = node_rows_on_card(torch, dev, inp, rows)
+        lazy = ciphertext_histogram(k_bins, k_cts, 32).reshape(
+            k_bins.shape[1], 32, 1, -1)
+        return {"counts": wall_ms(lambda: count_histogram(
+                    np.asarray(data.bins, np.int32)[rows], 32)),
+                "gather_pad": wall_ms(lambda: node_rows_on_card(
+                    torch, dev, inp, rows)),
+                "kernel": wall_ms(lambda: ciphertext_histogram(
+                    k_bins, k_cts, 32)),
+                "reduce": wall_ms(lambda: inp.cipher.reduce(lazy))}
+
+    walls = {k: wall_ms(lambda: engine.node_histogram(data, cts, nodes[k]))
+             for k in ("root", "left")}
+    res = dict(rows={k: len(v) for k, v in nodes.items()},
+               launches=launches, equal_to_layer_engine=True,
+               decrypted_cells=len(got), wall_ms=walls,
+               stage_ms={k: stages_ms(nodes[k]) for k in ("root", "left")})
+    print(f"node engine: root ({res['rows']['root']} rows), left "
+          f"({res['rows']['left']}) and right by subtraction "
+          f"({res['rows']['right']}) equal the layer engine (K1); the "
+          f"right child's {len(got)} cells decrypt to the plaintext sums; "
+          f"node_hist launches {launches}; wall ms per node_histogram call "
+          f"root {res['wall_ms']['root']:.3f}, left "
+          f"{res['wall_ms']['left']:.3f}", flush=True)
+    for k, st in res["stage_ms"].items():
+        print(f"node engine {k} stages ms: "
+              + ", ".join(f"{n} {v:.3f}" for n, v in st.items()), flush=True)
+    return res
 
 
 def mul_fixed_bound(N: int, T) -> tuple:
@@ -822,13 +1062,15 @@ def train_and_compare(name: str, device) -> tuple:
 
 # the port's own kernels, launched through ctypes with no PyTorch op
 # around them, which the profiler does not attribute to the enclosing
-# range: (wrapper module, launching function, kernel name).  K1 and K4 are
-# one kernel body, so their launches are matched to its runs together.
+# range: (wrapper module, launching function, kernel name).  K1, K4 and K5
+# are one kernel body, so their launches are matched to its runs together.
 OWN_LAUNCHERS = (("repro_torch.kernels.binning.ops", "bucketize_cuda",
                   "bucketize_kernel"),
                  ("repro_torch.kernels.histogram.ops", "layer_hist_cuda",
                   "layer_hist_kernel"),
                  ("repro_torch.kernels.histogram.ops", "forest_hist_cuda",
+                  "layer_hist_kernel"),
+                 ("repro_torch.kernels.histogram.ops", "hist_cuda",
                   "layer_hist_kernel"),
                  ("repro_torch.kernels.modmul.ops", "mul_fixed_cuda",
                   "mul_fixed_kernel"))
@@ -1257,6 +1499,12 @@ def main() -> int:
     lap("mul_fixed")
     frows = forest_hist_phase(torch, dev)
     lap("forest_hist")
+    node_inp = node_engine_inputs(torch, dev)
+    nrows = node_hist_phase(torch, dev, node_inp)
+    lap("node_hist")
+    node_engine = node_engine_phase(torch, dev, node_inp)
+    del node_inp
+    lap("node_engine")
     pred, serving = serving_phase(torch, dev, ref, X)
     branches = branch_phase(torch, dev)
     lap("serving")
@@ -1290,6 +1538,7 @@ def main() -> int:
     k1_row = hrows[0]                       # layer 0: 65536 rows, 1 node
     k2_row = mrows[0]                       # encryption, 1024-bit key
     k4_row = frows[-1]                      # the largest call: 4 nodes
+    k5_row = nrows[0]                       # the root: 65536 rows
     kernels = {"kernels": [
         dict(name="bucketize", route="cuda",
              source="src/repro_torch/csrc/bucketize.cu",
@@ -1339,7 +1588,16 @@ def main() -> int:
              ms=k4_row["ms"], plain_ms=k4_row["plain_ms"],
              bound_ms=k4_row["bound_ms"], bound_by=k4_row["bound_by"],
              library_ms=k4_row["library_ms"], shape=k4_row["shape"],
-             k=k4_row["k"], n_nodes=k4_row["n_nodes"], matches_plain=True)]}
+             k=k4_row["k"], n_nodes=k4_row["n_nodes"], matches_plain=True),
+        dict(name="node_hist", route="cuda",
+             source="src/repro_torch/csrc/layer_hist.cu",
+             replaces="src/repro/kernels/histogram/histogram.py:74",
+             launches=node_engine["launches"],
+             max_abs_err=max(r["max_abs_err"] for r in nrows),
+             ms=k5_row["ms"], plain_ms=k5_row["plain_ms"],
+             bound_ms=k5_row["bound_ms"], bound_by=k5_row["bound_by"],
+             library_ms=k5_row["library_ms"], shape=k5_row["shape"],
+             matches_plain=True)]}
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
               "count": torch.cuda.device_count()}
     if args.json:
@@ -1350,6 +1608,7 @@ def main() -> int:
                            cuda=torch.version.cuda, build_logs=build_logs,
                            kernel_rows=krows, layer_hist_rows=hrows,
                            mul_fixed_rows=mrows, forest_hist_rows=frows,
+                           node_hist_rows=nrows, node_engine=node_engine,
                            serving=serving,
                            branches=branches, training=training,
                            two_hosts=two_hosts,

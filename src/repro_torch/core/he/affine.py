@@ -133,6 +133,8 @@ class AffineCipher:
                 child_lazy.device)
         return limbs.pad_limbs(parent, w)[..., :w] + off - child_lazy
 
-    def zero(self, shape, device="cpu") -> torch.Tensor:
+    def zero(self, shape, device="cuda") -> torch.Tensor:
+        """The zero ciphertext, (*shape, Ln), on ``device`` (a card unless
+        ``"cpu"``)."""
         return torch.zeros(tuple(shape) + (self.Ln,), dtype=torch.int32,
-                           device=device)
+                           device=resolve_device(device))

@@ -12,7 +12,8 @@ oracle over python ints.  The port has the two limb suites:
   multiplies on the fixed-constant multiply kernel (K2).
 
 Both expose ``plaintext_bits``, ``backend`` ("limb"), ``Ln``,
-``encrypt_limbs`` / ``decrypt_to_ints``, ``add``, ``sub``, ``mul_pow2``
+``encrypt_ints`` / ``encrypt_limbs``, ``decrypt_limbs`` /
+``decrypt_to_ints``, ``add``, ``sub``, ``mul_pow2``
 (cipher compress) and the lazy histogram hooks ``hist_width``,
 ``reduce``, ``lazy_sub`` and ``zero``.  ``paillier`` raises until it is
 ported (ROADMAP M2).

@@ -23,8 +23,10 @@ matrix (:func:`toeplitz`): :func:`mul_fixed` hands it to
 version on a CPU tensor.  The JAX package leaves the two products inside
 Barrett reduction to XLA as an einsum; the port has no exact integer
 matrix product on the card but K2, so they run there too, with the same
-result.  The generic schoolbook ``mul`` and ``shift_right_bits`` are not
-ported: nothing on the port's paths calls them (ROADMAP M1).
+result.  The generic schoolbook :func:`mul` multiplies two big integers
+exactly in int32 and carries once; the reference's fp32 ``convolve`` is
+exact at its widths, and canonical limbs are unique, so both give the
+same limbs.
 """
 
 from __future__ import annotations
@@ -177,6 +179,17 @@ def shift_left_bits(a: torch.Tensor, k: int,
     return x
 
 
+def shift_right_bits(a: torch.Tensor, k: int) -> torch.Tensor:
+    """floor(a / 2**k) for canonical a (keeps the limb count)."""
+    limb_shift, bit_shift = divmod(k, RADIX_BITS)
+    x = torch.nn.functional.pad(a, (0, limb_shift))[..., limb_shift:]
+    if bit_shift:
+        nxt = torch.nn.functional.pad(x, (0, 1))[..., 1:]
+        x = (x >> bit_shift) | ((nxt << (RADIX_BITS - bit_shift))
+                                & LIMB_MASK)
+    return x
+
+
 def shift_right_limbs(a: torch.Tensor, k: int) -> torch.Tensor:
     return torch.nn.functional.pad(a, (0, k))[..., k:]
 
@@ -193,8 +206,20 @@ def mask_bits(a: torch.Tensor, nbits: int) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# multiplication by a fixed big integer
+# multiplication
 # ---------------------------------------------------------------------------
+
+def mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Batched schoolbook multiply of canonical limbs: (..., La) x (...,
+    Lb) -> (..., La+Lb) canonical.  Each column sums at most min(La, Lb)
+    products below 2**16, exact in int32 while min(La, Lb) < 2**15."""
+    La, Lb = a.shape[-1], b.shape[-1]
+    batch = torch.broadcast_shapes(a.shape[:-1], b.shape[:-1])
+    out = torch.zeros(batch + (La + Lb,), dtype=torch.int32, device=a.device)
+    for i in range(La):
+        out[..., i:i + Lb] += a[..., i:i + 1] * b
+    return carry_fix(out)
+
 
 class DeviceTable:
     """A constant int32 limb table, built once on the host (``host``, a

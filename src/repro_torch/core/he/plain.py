@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import torch
 
+from ...device import resolve_device
 from . import limbs
 
 
@@ -23,11 +24,20 @@ class PlainCipher:
         self.hist_headroom_limbs = hist_headroom_limbs
 
     # -- guest ---------------------------------------------------------
+    def encrypt_ints(self, xs, device="cuda") -> torch.Tensor:
+        """Python ints as (len(xs), Ln) limbs on ``device`` (a card unless
+        ``"cpu"``)."""
+        return torch.as_tensor(limbs.from_pyints(list(xs), self.Ln),
+                               device=resolve_device(device))
+
     def encrypt_limbs(self, x: torch.Tensor) -> torch.Tensor:
         return limbs.pad_limbs(x, self.Ln)[..., : self.Ln]
 
     def decrypt_to_ints(self, ct) -> list:
         return limbs.to_pyints(ct)
+
+    def decrypt_limbs(self, ct: torch.Tensor) -> torch.Tensor:
+        return ct
 
     # -- homomorphic ops ------------------------------------------------
     @staticmethod
@@ -67,6 +77,8 @@ class PlainCipher:
         w = child_lazy.shape[-1]
         return limbs.pad_limbs(parent, w)[..., :w] - child_lazy
 
-    def zero(self, shape, device="cpu") -> torch.Tensor:
+    def zero(self, shape, device="cuda") -> torch.Tensor:
+        """The zero ciphertext, (*shape, Ln), on ``device`` (a card unless
+        ``"cpu"``)."""
         return torch.zeros(tuple(shape) + (self.Ln,), dtype=torch.int32,
-                           device=device)
+                           device=resolve_device(device))

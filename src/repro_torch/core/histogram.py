@@ -1,16 +1,21 @@
-"""Histogram engines (paper Algorithms 1 & 5), layer-batched.
+"""Histogram engines (paper Algorithms 1 & 5), node-level and
+layer-batched.
 
 The port of the JAX package's ``core/histogram.py``, for the paths the
 port runs so far (dense features, one device, limb ciphers):
 
-* :class:`CipherHistogram` -- host side.  Accumulates the packed-GH
-  ciphertexts of every direct-mode frontier node of one tree layer in ONE
-  launch of the layer histogram kernel (``kernels/histogram``: lazy int32
-  limb sums over the composite index ``node_slot * n_bins + bin``),
-  subtracts sibling histograms from cached parents in the still-lazy limb
-  domain (``cipher.lazy_sub``), and canonicalizes the whole layer with ONE
-  ``cipher.reduce``; the bin cumsum runs in the ciphertext domain.  Every
-  tensor stays on the frontier's device.
+* :class:`CipherHistogram` -- host side.  The layer path accumulates the
+  packed-GH ciphertexts of every direct-mode frontier node of one tree
+  layer in ONE launch of the layer histogram kernel (``kernels/histogram``:
+  lazy int32 limb sums over the composite index ``node_slot * n_bins +
+  bin``), subtracts sibling histograms from cached parents in the
+  still-lazy limb domain (``cipher.lazy_sub``), and canonicalizes the
+  whole layer with ONE ``cipher.reduce``; the bin cumsum runs in the
+  ciphertext domain.  The per-node path (``node_histogram`` and
+  ``subtract``) accumulates one node's rows with one launch of the node
+  histogram kernel (K5) and one reduce; no training path calls it, and it
+  is the oracle the layer path is held to.  Every tensor stays on the
+  ciphertexts' device.
 * :class:`PlainHistogram` -- guest side (and the local baseline).  The
   same shapes in plaintext float64 via ``np.add.at`` on the host, exactly
   as the reference: float sums depend on order, so they stay in numpy to
@@ -22,8 +27,8 @@ n_slots, L).  A round-forest layer (``forest=k``) accumulates the direct
 nodes of all k member trees in ONE launch of the forest histogram kernel
 and gathers the member-major result back into ``direct`` order, so the
 lazy subtraction, the reduce and the cumsum are the same.  The sparse
-zero-bin recovery, the out-of-core stream and the mesh dispatch are not
-ported yet.
+zero-bin recovery, the Paillier object path, the out-of-core stream and
+the mesh dispatch are not ported yet.
 """
 
 from __future__ import annotations
@@ -31,7 +36,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..kernels.histogram import (forest_ciphertext_histogram,
+from ..kernels.histogram import (ciphertext_histogram, count_histogram,
+                                 forest_ciphertext_histogram,
                                  layer_ciphertext_histogram,
                                  layer_count_histogram)
 from .binning import BinnedData
@@ -48,6 +54,13 @@ class PlainHistogram:
 
     def __init__(self, n_bins: int):
         self.n_bins = n_bins
+
+    def node_histogram(self, data: BinnedData, g: np.ndarray, h: np.ndarray,
+                       rows: np.ndarray):
+        """One node's (G, H, C) over ``rows``: the one-node case of
+        :meth:`layer_histograms`, which adds in the same order as the
+        reference's dense branch (sparse is not ported)."""
+        return self.layer_histograms(data, g, h, {0: rows}, [0], [], {})[0]
 
     def layer_histograms(self, data: BinnedData, g: np.ndarray, h: np.ndarray,
                          node_rows: dict, direct: list, subtract: list,
@@ -109,6 +122,48 @@ class CipherHistogram:
     def _count_launch(self):
         if self.stats is not None:
             self.stats.n_hist_launches += 1
+
+    def node_histogram(self, data: BinnedData, cts: torch.Tensor,
+                       rows: np.ndarray):
+        """One node's histogram over ``rows`` (host row ids).
+
+        cts: (n, n_slots, L) limb tensor; its device is where the work runs
+        (a numpy array raises ``TypeError``: it is not placed anywhere
+        quietly).  Returns (hist, counts): the canonical (n_f, n_b,
+        n_slots, L) histogram tensor on that device and the (n_f, n_b)
+        int64 plaintext counts."""
+        if self.cipher.backend != "limb":
+            raise NotImplementedError(
+                f"node_histogram for the {self.cipher.name!r} cipher is not "
+                f"ported yet (ROADMAP Queue 1 M2, the Paillier oracle)")
+        if not torch.is_tensor(cts):
+            raise TypeError(f"node_histogram takes cts as a tensor, got "
+                            f"{type(cts).__name__}")
+        rows = np.asarray(rows, np.int64)
+        bins = np.asarray(data.bins, np.int32)[rows]
+        counts = count_histogram(bins, self.n_bins).astype(np.int64)
+        return self._limb_hist(bins, cts, rows), counts
+
+    def _limb_hist(self, bins: np.ndarray, cts: torch.Tensor,
+                   rows: np.ndarray) -> torch.Tensor:
+        """One K5 launch over the node's rows, padded to the cipher's
+        histogram width, then one reduce."""
+        dev = cts.device
+        sel = cts[torch.as_tensor(rows, device=dev)]
+        n, n_slots, _ = sel.shape
+        width = self.cipher.hist_width
+        flat = limbs.pad_limbs(sel, width).reshape(n, n_slots * width)
+        lazy = ciphertext_histogram(torch.as_tensor(bins, device=dev), flat,
+                                    self.n_bins)
+        self._count_launch()
+        lazy = lazy.reshape(lazy.shape[0], self.n_bins, n_slots, width)
+        return self.cipher.reduce(lazy)
+
+    def subtract(self, parent, child):
+        """Ciphertext histogram subtraction (§4.3): sibling = parent -
+        child, on (hist, counts) pairs."""
+        (ph, pc), (ch, cc) = parent, child
+        return self.cipher.sub(ph, ch), pc - cc
 
     def layer_histograms(self, frontier, node_rows: dict, direct: list,
                          subtract: list, forest: int = 0) -> dict:

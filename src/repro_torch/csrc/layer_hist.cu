@@ -1,7 +1,7 @@
-// Layer- and forest-batched ciphertext histograms for Hopper, sm_90a: one
-// kernel body, two C entries.
+// Layer-, forest- and node-level ciphertext histograms for Hopper, sm_90a:
+// one kernel body, three C entries.
 //
-// Replaces two TPU kernels of src/repro/kernels/histogram/histogram.py
+// Replaces three TPU kernels of src/repro/kernels/histogram/histogram.py
 // whose Pallas bodies are the same one-hot contraction:
 //   * layer_hist_pallas / _layer_hist_kernel (pallas_call at line 142),
 //     K1, through layer_hist_launch:
@@ -19,10 +19,17 @@
 //
 //     with node_slot (n_i, k) member-local slots and out (k, n_nodes, n_f,
 //     n_bins, W).  K1 is the k = 1 case: the member index is one more grid
-//     axis and node_slot is read with a column stride of k.
+//     axis and node_slot is read with a column stride of k;
+//   * hist_pallas / _hist_kernel (pallas_call at line 74), K5, through
+//     node_hist_launch: one node's histogram,
 //
-// bins (n_i, n_f) int32, node_slot and cts (n_i, W) int32 limbs, all
-// row-major; out int32 lazy (un-carried) sums, zero-filled by the caller.
+//       out[f, b, w] = sum over rows i with bins[i, f] == b of cts[i, w]
+//
+//     with out (n_f, n_bins, W).  It is K1 with one node and a null slot
+//     pointer, which the body reads as "every row is in node 0".
+//
+// bins (n_i, n_f) int32, node_slot (or null) and cts (n_i, W) int32
+// limbs, all row-major; out int32 lazy (un-carried) sums, zero-filled by the caller.
 // A row counts for (member t, feature f) only when 0 <= node_slot[i, t] <
 // n_nodes and 0 <= bins[i, f] < n_bins: a negative slot or bin is the
 // protocol's mask, and anything else out of range is skipped too, so no
@@ -35,13 +42,15 @@
 // output written once.  K1 at the training main path's largest call
 // (65,536 rows, 14 host features, 32 bins, W = 131 limbs): 3.7 MB of
 // bins, 0.26 MB of slots and 34.3 MB of limbs, 38.5 MB, 11.5 us at
-// 3.35 TB/s.  K4 at the forest4 path's largest call (65,536 rows, 14
-// features, 32 bins, k = 4 members of 4 nodes, W = 67): 17.6 MB of limbs,
-// 3.7 MB of bins, 1.0 MB of slots read and 1.9 MB written, about 24 MB,
-// 7.2 us.  Operations: n_i * n_f * W int32 adds per member, 120 M for the
-// K1 call and 4 x 61 M for the K4 one, 1.8 us and 3.7 us at the
-// published 67 T/s of 32-bit work outside the tensor cores.  So the bound
-// is bytes.  This first version does not reach it:
+// 3.35 TB/s.  K5 at the per-node engine's root (the same 65,536 rows,
+// 14 features, 32 bins and W = 131, no slots): 3.67 MB of bins, 34.3 MB
+// of limbs and 0.23 MB written, 38.2 MB, 11.4 us.  K4 at the forest4
+// path's largest call (65,536 rows, 14 features, 32 bins, k = 4 members
+// of 4 nodes, W = 67): 17.6 MB of limbs, 3.7 MB of bins, 1.0 MB of slots
+// read and 1.9 MB written, about 24 MB, 7.2 us.  Operations: n_i * n_f *
+// W int32 adds per member, 120 M for the K1 and K5 calls and 4 x 61 M
+// for the K4 one, 1.8 us and 3.7 us at the published 67 T/s of 32-bit
+// work outside the tensor cores.  So the bound is bytes.  This first version does not reach it:
 //   * one block owns one (member, feature, node tile, limb tile, row
 //     tile): a (nodes x n_bins x limbs) int32 histogram tile in shared
 //     memory, kept within the 48 KB a launch gets without an opt-in (the
@@ -123,7 +132,7 @@ __global__ void layer_hist_kernel(const int32_t* __restrict__ bins,
     __syncthreads();                        // the last chunk is consumed
     for (int k = t; k < nr; k += blockDim.x) {
       const int64_t i = r0 + k;
-      const int s = slot[i * n_members + m] - n0;
+      const int s = (slot ? slot[i * n_members + m] : 0) - n0;
       const int bn = bins[i * n_f + f];
       s_cell[k] = (s >= 0 && s < nn && bn >= 0 && bn < n_bins)
                       ? s * n_bins + bn : -1;
@@ -156,7 +165,8 @@ __global__ void layer_hist_kernel(const int32_t* __restrict__ bins,
   }
 }
 
-// The launch both entries share: k member trees (k = 1 for K1).
+// The launch every entry shares: k member trees (k = 1 for K1 and K5),
+// node_slot null for K5 (every row in node 0 of n_nodes = 1).
 int launch(const void* bins, const void* node_slot, const void* cts,
            void* out, long long n_i, int n_f, int k, int n_nodes, int n_bins,
            int W, void* stream) {
@@ -223,4 +233,11 @@ extern "C" int forest_hist_launch(const void* bins, const void* node_slot,
                                   int W, void* stream) {
   return launch(bins, node_slot, cts, out, n_i, n_f, k, n_nodes, n_bins, W,
                 stream);
+}
+
+// K5: no slots, every row in the one node -> out (n_f, n_bins, W).
+extern "C" int node_hist_launch(const void* bins, const void* cts, void* out,
+                                long long n_i, int n_f, int n_bins, int W,
+                                void* stream) {
+  return launch(bins, nullptr, cts, out, n_i, n_f, 1, 1, n_bins, W, stream);
 }

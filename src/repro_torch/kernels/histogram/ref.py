@@ -1,4 +1,5 @@
-"""Plain PyTorch version of the layer-batched ciphertext histogram kernel."""
+"""Plain PyTorch versions of the ciphertext histogram kernels: one node
+(K5), a tree layer (K1) and a round-forest layer (K4)."""
 
 from __future__ import annotations
 
@@ -48,3 +49,20 @@ def forest_hist_ref(bins: torch.Tensor, node_slot: torch.Tensor,
     return torch.stack([layer_hist_ref(bins, node_slot[:, t], cts, n_nodes,
                                        n_bins)
                         for t in range(node_slot.shape[1])])
+
+
+def hist_ref(bins: torch.Tensor, cts: torch.Tensor,
+             n_bins: int) -> torch.Tensor:
+    """One node's ciphertext histogram.
+
+    bins: (n_i, n_f) int32 bin per (instance, feature).
+    cts:  (n_i, W) int32 limb vectors.
+    returns (n_f, n_bins, W) int32 lazy (un-carried) limb sums.
+
+    A row counts for feature f only when ``0 <= bins[:, f] < n_bins`` (a
+    negative bin is the protocol's mask).  :func:`layer_hist_ref` with
+    every row in node 0: exact int32 scatter-adds, one feature at a time,
+    at any row count (the JAX reference's fp32 one-hot einsum is exact
+    only while each sum stays below 2**24)."""
+    slot = torch.zeros(bins.shape[0], dtype=torch.int32, device=bins.device)
+    return layer_hist_ref(bins, slot, cts, 1, n_bins)[0]

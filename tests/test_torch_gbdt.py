@@ -326,7 +326,7 @@ def test_numpy_copies_and_plain_cipher_match_jax():
     tc, jc = PlainCipher(bits=1024), JaxPlain(bits=1024)
     assert (tc.Ln, tc.plaintext_bits, tc.hist_width) == \
         (jc.Ln, jc.plaintext_bits, jc.hist_width) == (128, 1023, 131)
-    zero = tc.zero((2, 3))
+    zero = tc.zero((2, 3), device="cpu")
     assert zero.dtype == torch.int32
     np.testing.assert_array_equal(zero.numpy(), np.asarray(jc.zero((2, 3))))
     x = torch.from_numpy(rng.integers(0, 256, (4, 3, 20)).astype(np.int32))

@@ -20,6 +20,7 @@ import torch
 
 from repro_torch.core import LocalGBDT, SBTParams, VerticalBoosting
 from repro_torch.core.binning import BinnedData, apply_binning, bin_features
+from repro_torch.core.he import get_cipher
 from repro_torch.serving import (FederatedPredictor, PackedEnsemble,
                                  load_ensemble, load_guest, load_host,
                                  pack_guest)
@@ -102,6 +103,11 @@ ENTRY_POINTS = {
     "PackedEnsemble.from_model": lambda: PackedEnsemble.from_model(
         _cpu_model()),
     "pack_guest": lambda: pack_guest(_cpu_model()),
+    "PlainCipher.encrypt_ints": lambda: get_cipher(
+        "plain", bits=64).encrypt_ints([1, 2]),
+    "PlainCipher.zero": lambda: get_cipher("plain", bits=64).zero((2,)),
+    "AffineCipher.zero": lambda: get_cipher("affine", key_bits=64,
+                                            seed=0).zero((2,)),
 }
 
 

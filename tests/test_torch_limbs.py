@@ -1,11 +1,11 @@
 """The port's limb substrate against the JAX package's, on the CPU.
 
-Every operation the plain cipher and the grower use (carry and borrow
-propagation, add, sub, shifts, masks, padding) must give the same int32
-limbs as ``repro.core.he.limbs`` and the same python ints.  Inputs come
-from seeded numpy draws: the cases of ``tests/test_limbs.py`` (canonical
-big ints) plus lazy, mixed-sign limb vectors of the kind histogram
-subtraction leaves behind.
+Every operation (carry and borrow propagation, add, sub, the schoolbook
+multiply, shifts, masks, padding, and the Barrett pieces) must give the
+same int32 limbs as ``repro.core.he.limbs`` and the same python ints.
+Inputs come from seeded numpy draws: the cases of ``tests/test_limbs.py``
+(canonical big ints) plus lazy, mixed-sign limb vectors of the kind
+histogram subtraction leaves behind.
 """
 
 import numpy as np
@@ -138,6 +138,37 @@ def test_shift_left_and_mask_match_jax(k):
                       lambda j: jl.mask_bits(j, k), a)
     np.testing.assert_array_equal(got, want)
     assert tl.to_pyints(got) == [x & ((1 << k) - 1) for x in xs]
+
+
+@pytest.mark.parametrize("k", [0, 1, 7, 8, 13, 64, 138, 300])
+def test_shift_right_bits_matches_jax(k):
+    """``tests/test_limbs.py::test_shifts_and_mask``'s right shift."""
+    rng = np.random.default_rng(60 + k)
+    xs = _bigints(rng, 5) + [0, (1 << 256) - 1]
+    a = tl.from_pyints(xs, 32)
+    got, want = _both(lambda t: tl.shift_right_bits(t, k),
+                      lambda j: jl.shift_right_bits(j, k), a)
+    np.testing.assert_array_equal(got, want)
+    assert tl.to_pyints(got) == [x >> k for x in xs]
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_mul_matches_jax_and_python_ints(seed):
+    """``tests/test_limbs.py::test_mul``: 26-limb operands, the schoolbook
+    product against the JAX package's fp32 convolve and python ints; a
+    broadcast batch and unequal widths too."""
+    rng = np.random.default_rng(70 + seed)
+    xs = _bigints(rng, 4) + [0, (1 << 200) - 1]
+    ys = _bigints(rng, 4) + [(1 << 200) - 1, (1 << 200) - 1]
+    a, b = tl.from_pyints(xs, 26), tl.from_pyints(ys, 26)
+    got, want = _both(tl.mul, jl.mul, a, b)
+    assert got.shape == (6, 52)
+    np.testing.assert_array_equal(got, want)
+    assert tl.to_pyints(got) == [x * y for x, y in zip(xs, ys)]
+    c = tl.from_pyints(_bigints(rng, 1, 96), 12)
+    got, want = _both(tl.mul, jl.mul, c, a)
+    np.testing.assert_array_equal(got, want)
+    assert tl.to_pyints(got) == [tl.to_pyints(c)[0] * x for x in xs]
 
 
 def test_pad_limbs_matches_jax():
@@ -273,6 +304,7 @@ def test_no_function_changes_its_arguments():
         (tl.cond_sub, (a + a, n)), (lambda t: tl.shift_right_limbs(t, 3),
                                     (a,)),
         (lambda t: tl.shift_left_bits(t, 13), (a,)),
+        (lambda t: tl.shift_right_bits(t, 13), (a,)), (tl.mul, (a, b)),
         (lambda t: tl.mask_bits(t, 29), (a,)),
         (lambda t: tl.pad_limbs(t, Ln + 2), (a,)),
         (tl.mul_fixed, (a, T)), (lambda t: tl.barrett_reduce(t, ctx), (x,)),
